@@ -1,0 +1,221 @@
+"""Uncertainty-driven point sampling and point-based depth prediction, NHWC.
+
+- `certain_sample`: `sample_num` high-variance points stratified by depth
+  intervals, with the original's quirks (per-interval top-k over the
+  GLOBAL variance map, index-ascending order, tile-then-repeat fill).
+- `PyramidLayer`: mini ResNet + 4-scale SPP over the per-point planes. Its
+  12-link trunk and, where the concat is at most 400 channels wide, its
+  `last0` link run through kernel K2 (`ops/fused_conv.py`); the SPP
+  branches and the wide `last0` use plain conv + LayerNorm.
+- `PointBasedPred`: depth = sum over points of softmax(pyramid(global x
+  refer)) * anchor depth, with the original's `dim**-2` scale.
+
+Names follow the original PyTorch code: `firstconv.{0,2}`,
+`layerK.J.conv1.0` / `layerK.J.conv2`, `branchK.1`, `lastconv.{0,2}`, and
+ConvLn's `conv` / `layer_norm`.
+"""
+
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from gwdepth_tpu_torch.ops.fused_conv import conv3x3_ln_act
+from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
+from gwdepth_tpu_torch.ops.interpolate import (avg_pool_matmul_nhwc,
+                                               resize_bilinear,
+                                               resize_bilinear_matmul_nhwc)
+
+# widest concat whose `last0` link still goes through the fused kernel
+# (the 1/8 site, 300 channels; the 1/4 site's 800 stays a plain conv)
+FUSE_LAST0_MAX_CI = 400
+
+
+def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b=None, padding: int = 0,
+                dilation: int = 1) -> torch.Tensor:
+    """Conv of an NHWC tensor with a torch (O, I, kh, kw) weight."""
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=padding,
+                 dilation=dilation)
+    return y.permute(0, 2, 3, 1)
+
+
+# ---------------------------------------------------------------------------
+# certain sample
+# ---------------------------------------------------------------------------
+
+def _topk_flat(v: torch.Tensor, S: int) -> torch.Tensor:
+    """Top-S indices of a flat array, ties broken by the lower index first
+    (as `lax.top_k`): a stable descending sort, since `torch.topk` promises
+    no tie order."""
+    return torch.sort(v, descending=True, stable=True).indices[:S]
+
+
+def certain_sample(pred_small: torch.Tensor, pred_large: torch.Tensor,
+                   intervals: Sequence[float], sample_num: int,
+                   min_depth_norm: float) -> torch.Tensor:
+    """pred_small (B, h, w), pred_large (B, H, W) normalized depths ->
+    (B, S, 1, 2) coords in [-1, 1], grid_sample (x, y) convention."""
+    B, H, W = pred_large.shape
+    S = sample_num
+    dev = pred_large.device
+    up = resize_bilinear(pred_small, (H, W), align_corners=True)
+    variance = (up - pred_large) ** 2
+    bounds = [min_depth_norm] + list(intervals) + [1.0]
+    K = len(bounds) - 1
+    total = H * W
+    r = torch.arange(S, device=dev)
+
+    rows = []
+    for bi in range(B):
+        p = pred_large[bi].reshape(-1)
+        v = variance[bi].reshape(-1)
+        counts = torch.stack([((p >= bounds[i]) & (p < bounds[i + 1])).sum()
+                              for i in range(K)]).float()
+        quotas = torch.minimum(torch.floor(counts / total * S),
+                               counts).long()                    # (K,)
+        topi = _topk_flat(v, S)                                  # desc by var
+        # segment k: its quota of largest-variance pixels, index-ascending
+        masked = torch.where(r[None, :] < quotas[:, None], topi[None, :],
+                             torch.full_like(topi, total)[None, :])
+        mat = torch.sort(masked, dim=1).values                   # (K, S)
+        csum = torch.cumsum(quotas, 0)
+        starts = csum - quotas
+        already = csum[-1]
+        seg_id = torch.searchsorted(csum, r, right=True).clamp(0, K - 1)
+        base = mat[seg_id, r - starts[seg_id]]
+        # fixed-size fill: tile the sequence, then repeat its tail
+        A = torch.clamp(already, min=1)
+        copy_times = torch.where(S - A >= A, (S - A) // A + 1,
+                                 torch.ones_like(A))
+        T = A * copy_times
+        remain2 = S - T
+        tp = torch.where(r < T, r, (T - remain2) + (r - T))
+        filled = base[tp.clamp(0, S - 1) % A]
+        fallback = torch.sort(topi).values      # no quota: global top-S
+        rows.append(torch.where(already > 0, filled, fallback))
+    flat = torch.stack(rows)                                     # (B, S)
+    x = ((flat % W).float() / W) * 2.0 - 1.0
+    y = ((flat // W).float() / H) * 2.0 - 1.0
+    return torch.stack([x, y], dim=-1)[:, :, None, :]
+
+
+# ---------------------------------------------------------------------------
+# pyramid layer
+# ---------------------------------------------------------------------------
+
+class ConvLn(nn.Module):
+    """3x3 conv without bias + channels-last LayerNorm."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__()
+        self.conv = nn.Conv2d(cin, cout, 3, padding=1, bias=False)
+        self.layer_norm = nn.LayerNorm(cout, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """Plain conv + LayerNorm (x NHWC)."""
+        return self.layer_norm(conv2d_nhwc(x, self.conv.weight, padding=1))
+
+    def fused(self, x: torch.Tensor, act=None,
+              residual=None) -> torch.Tensor:
+        """act(LN(conv(x))) [+ residual] through kernel K2."""
+        return conv3x3_ln_act(x, self.conv.weight.permute(2, 3, 1, 0),
+                              self.layer_norm.weight, self.layer_norm.bias,
+                              residual, act)
+
+
+class BasicBlock(nn.Module):
+    """ConvLn+GELU -> ConvLn, residual; `conv1` is `Sequential(ConvLn,
+    GELU)` as in the original."""
+
+    def __init__(self, planes: int):
+        super().__init__()
+        self.conv1 = nn.Sequential(ConvLn(planes, planes), nn.GELU())
+        self.conv2 = ConvLn(planes, planes)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = self.conv1[0].fused(x, "gelu")
+        # the residual add stays outside the kernel, as in the JAX package
+        return self.conv2.fused(out) + x
+
+
+class PyramidLayer(nn.Module):
+    """Mini ResNet + SPP over per-point planes; in/out channels = points.
+    The module containers mirror the original's Sequentials; index 0 of
+    each `branchK` stands for its average pool, which runs here as a
+    separable matmul (`avg_pool_matmul_nhwc`)."""
+
+    def __init__(self, in_dim: int, pool_sizes: Tuple[int, ...]):
+        super().__init__()
+        d2 = in_dim * 2
+        self.pool_sizes = tuple(pool_sizes)
+        self.firstconv = nn.Sequential(ConvLn(in_dim, in_dim), nn.GELU(),
+                                       ConvLn(in_dim, d2), nn.GELU())
+        self.layer1 = nn.Sequential(BasicBlock(d2))
+        self.layer2 = nn.Sequential(BasicBlock(d2), BasicBlock(d2))
+        self.layer3 = nn.Sequential(BasicBlock(d2), BasicBlock(d2))
+        for i, k in enumerate(self.pool_sizes):
+            setattr(self, f"branch{i + 1}", nn.Sequential(
+                nn.AvgPool2d(k, k), ConvLn(d2, d2), nn.GELU()))
+        self.lastconv = nn.Sequential(
+            ConvLn(d2 * (len(self.pool_sizes) + 1), d2 * 2), nn.GELU(),
+            nn.Conv2d(d2 * 2, in_dim, 1, bias=False))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, H, W, P) -> (B, H, W, P)."""
+        _, H, W, _ = x.shape
+        x = self.firstconv[0].fused(x, "gelu")
+        x = self.firstconv[2].fused(x, "gelu")
+        for layer in (self.layer1, self.layer2, self.layer3):
+            for blk in layer:
+                x = blk(x)
+        # pad so the largest pool fits
+        k0 = self.pool_sizes[0]
+        Hp, Wp = max(H, k0), max(W, k0)
+        if Hp != H or Wp != W:
+            x = F.pad(x, (0, 0, 0, Wp - W, 0, Hp - H))
+        branches = [x]
+        for i, k in enumerate(self.pool_sizes):
+            b = avg_pool_matmul_nhwc(x, k)
+            b = F.gelu(getattr(self, f"branch{i + 1}")[1](b))
+            branches.append(resize_bilinear_matmul_nhwc(b, (Hp, Wp),
+                                                        align_corners=True))
+        xx = torch.cat(branches, dim=-1)
+        last0 = self.lastconv[0]
+        if xx.shape[-1] <= FUSE_LAST0_MAX_CI:
+            x = last0.fused(xx, "gelu")
+        else:
+            x = F.gelu(last0(xx))
+        x = x @ self.lastconv[2].weight[:, :, 0, 0].t()
+        return x[:, :H, :W]
+
+
+# ---------------------------------------------------------------------------
+# point based prediction
+# ---------------------------------------------------------------------------
+
+class PointBasedPred(nn.Module):
+    """Depth from sampled anchor points."""
+
+    def __init__(self, dim: int, token_dim: int,
+                 pool_sizes: Tuple[int, ...], point_num: int):
+        super().__init__()
+        self.dim = dim
+        self.pre_proj = nn.Linear(dim + token_dim, dim)
+        self.refer_proj = nn.Linear(dim, 2 * dim)
+        self.pyramid = PyramidLayer(point_num, pool_sizes)
+
+    def forward(self, x, depth_token, pre_depth, coords, pos_embedding):
+        """x (B, H, W, C); depth_token (B, H, W, tC); pre_depth (B, H, W);
+        coords (B, S, 1, 2); pos_embedding (B, H, W, C) -> (B, H, W)."""
+        x_global = self.pre_proj(torch.cat([x, depth_token], dim=-1))
+        xg, xr = self.refer_proj(x_global).split(self.dim, dim=-1)
+        refer = (grid_sample_nhwc(xr, coords)
+                 + grid_sample_nhwc(pos_embedding, coords))[:, :, 0, :]
+        anchor = grid_sample_nhwc(pre_depth[..., None], coords)[:, :, 0, 0]
+        rg = torch.einsum("bhwc,bsc->bhws", xg, refer) * (self.dim ** -2)
+        rg = self.pyramid(rg.to(x.dtype))
+        attn = torch.softmax(rg.float(), dim=-1)
+        return torch.einsum("bhws,bs->bhw", attn, anchor.float())

@@ -1,0 +1,157 @@
+"""The port's two kernel modules against the JAX package, on the CPU.
+
+K1 `ops/ref_attn_diffusion.py` and K2 `ops/fused_conv.py`: on a CPU
+tensor each wrapper runs its plain PyTorch version, which is held here
+against the JAX formulations and the Pallas kernels in interpret mode.
+The CUDA kernels themselves are held against the same plain versions on
+the card (`tests/test_torch_cuda.py`, and `chip_smoke.py`).
+
+Tolerances: float32 against float32 is reassociation (1e-5 / 2e-5); the
+JAX fused conv in `fast=True` mode multiplies bf16 taps, so that
+comparison uses the bf16-tap tolerance of tests/test_fused_conv.py (5e-2).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gwdepth_tpu.models.swin import diffusion_xla
+from gwdepth_tpu.ops.fused_conv import (conv3x3_ln_act as jax_conv3x3,
+                                        conv3x3_ln_act_reference,
+                                        fused_conv_ln_act_frame,
+                                        frame_to_nhwc, nhwc_to_frame)
+from gwdepth_tpu.ops.pallas_kernels import ref_attn_diffusion_pallas
+
+from gwdepth_tpu_torch.ops import fused_conv as port_fc
+from gwdepth_tpu_torch.ops import ref_attn_diffusion as port_k1
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+
+def _k1_inputs(seed, B=2, P=30, R=8, H=4):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(B, P, R, H)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, H, H)) / np.sqrt(9 * H)).astype(np.float32)
+    b = (0.1 * rng.normal(size=(H,))).astype(np.float32)
+    return a, w, b
+
+
+def test_k1_plain_matches_diffusion_xla():
+    a, w, b = _k1_inputs(0)
+    want = np.asarray(diffusion_xla(jnp.asarray(a), jnp.asarray(w),
+                                    jnp.asarray(b)))
+    got = port_k1.ref_attn_diffusion_plain(_t(a), _t(w), _t(b)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=1e-5)
+
+
+def test_k1_plain_matches_pallas_interpret():
+    a, w, b = _k1_inputs(1, B=1, P=49, R=6, H=8)
+    want = np.asarray(ref_attn_diffusion_pallas(
+        jnp.asarray(a), jnp.asarray(w), jnp.asarray(b), interpret=True))
+    got = port_k1.ref_attn_diffusion_plain(_t(a), _t(w), _t(b)).numpy()
+    # the Pallas kernel's A&S erf is within 1.5e-7 of erf
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=2e-5)
+
+
+def test_k1_wrapper_routes_cpu_to_plain_without_counting():
+    a, w, b = _k1_inputs(2)
+    before = port_k1.ref_attn_diffusion.launches
+    got = port_k1.ref_attn_diffusion(_t(a), _t(w), _t(b))
+    want = port_k1.ref_attn_diffusion_plain(_t(a), _t(w), _t(b))
+    assert torch.equal(got, want)
+    assert port_k1.ref_attn_diffusion.launches == before
+
+
+def test_k1_wrapper_raises_on_other_devices():
+    a, w, b = (t.to("meta") for t in map(_t, _k1_inputs(3)))
+    with pytest.raises(ValueError, match="no kernel"):
+        port_k1.ref_attn_diffusion(a, w, b)
+
+
+def test_k1_tile_rows():
+    assert port_k1.tile_rows(980, 40) == 6       # main path: 240 threads
+    assert port_k1.tile_rows(3, 8) == 3
+    with pytest.raises(ValueError):
+        port_k1.tile_rows(10, 2000)
+
+
+def _k2_inputs(seed, ci, co=24, B=2, H=12, W=20):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(B, H, W, ci)).astype(np.float32)
+    w = (rng.normal(size=(3, 3, ci, co)) / np.sqrt(ci)).astype(np.float32)
+    g = (1.0 + 0.1 * rng.normal(size=(co,))).astype(np.float32)
+    b = (0.1 * rng.normal(size=(co,))).astype(np.float32)
+    r = rng.normal(size=(B, H, W, co)).astype(np.float32)
+    return x, w, g, b, r
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "elu"])
+@pytest.mark.parametrize("ci", [16, 300])
+def test_k2_plain_matches_reference(act, ci):
+    x, w, g, b, _ = _k2_inputs(ci, ci)
+    want = np.asarray(conv3x3_ln_act_reference(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
+        act=act))
+    got = port_fc.conv3x3_ln_act_plain(_t(x), _t(w), _t(g), _t(b),
+                                       act=act).numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "elu"])
+@pytest.mark.parametrize("ci", [16, 300])
+def test_k2_plain_matches_pallas_bf16_taps(act, ci):
+    x, w, g, b, _ = _k2_inputs(ci + 1, ci, H=8, W=12)
+    want = np.asarray(jax_conv3x3(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
+        act=act, fast=True, interpret=True, k_chunk=128))
+    got = port_fc.conv3x3_ln_act(_t(x), _t(w), _t(g), _t(b),
+                                 act=act).numpy()
+    np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+
+
+def test_k2_residual_and_no_ln():
+    x, w, g, b, r = _k2_inputs(7, 32, co=32)
+    want = np.asarray(conv3x3_ln_act_reference(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
+        residual=jnp.asarray(r), act="gelu"))
+    got = port_fc.conv3x3_ln_act(_t(x), _t(w), _t(g), _t(b), _t(r),
+                                 "gelu").numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+    want = np.asarray(conv3x3_ln_act_reference(
+        jnp.asarray(x), jnp.asarray(w), act="elu"))
+    got = port_fc.conv3x3_ln_act(_t(x), _t(w), act="elu").numpy()
+    np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
+
+
+def test_k2_chain_matches_frame_chain():
+    """Links chained in NHWC read zero borders exactly as the JAX frame
+    chain does (it zeroes its junk columns between links)."""
+    rng = np.random.default_rng(11)
+    B, H, W, C = 1, 9, 13, 8
+    x = rng.normal(size=(B, H, W, C)).astype(np.float32)
+    ws = [(rng.normal(size=(3, 3, C, C)) / np.sqrt(9 * C)).astype(np.float32)
+          for _ in range(3)]
+    g = np.ones((C,), np.float32)
+    b = np.zeros((C,), np.float32)
+    acts = ["gelu", None, "gelu"]
+
+    xf = nhwc_to_frame(jnp.asarray(x))
+    for w, act in zip(ws, acts):
+        xf = fused_conv_ln_act_frame(xf, jnp.asarray(w), jnp.asarray(g),
+                                     jnp.asarray(b), act, (H, W))
+    want = np.asarray(frame_to_nhwc(xf, (H, W)))
+
+    y = _t(x)
+    for w, act in zip(ws, acts):
+        y = port_fc.conv3x3_ln_act(y, _t(w), _t(g), _t(b), act=act)
+    np.testing.assert_allclose(y.numpy(), want, atol=5e-2, rtol=5e-2)
+
+
+def test_k2_wrapper_raises_on_other_devices():
+    x, w, g, b, _ = (_t(t).to("meta") for t in _k2_inputs(5, 8, co=8))
+    with pytest.raises(ValueError, match="no kernel"):
+        port_fc.conv3x3_ln_act(x, w, g, b, act="gelu")
