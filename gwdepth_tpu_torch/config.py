@@ -139,6 +139,14 @@ class GWDepthConfig:
     def replace(self, **kw) -> "GWDepthConfig":
         return dataclasses.replace(self, **kw)
 
+    def set_matmul_precision(self) -> None:
+        """Run cuBLAS matmuls and cuDNN convs at the config's precision:
+        full float32 (no TF32) for `dtype="float32"`, which PyTorch would
+        otherwise round to TF32 in every cuDNN conv."""
+        tf32 = self.dtype != "float32"
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+
 
 def tiny_test_config(**kw) -> GWDepthConfig:
     """Small config for unit tests: every architectural mechanism (4 scales,

@@ -1,0 +1,267 @@
+"""Training / evaluation CLI of the port, on one card.
+
+The flags and defaults of `gwdepth_tpu.main`, plus `--device` (cuda by
+default; the CUDA kernels run there, CPU tensors take their plain
+versions). It writes the same `log.txt` JSON lines and
+`eval_results.txt` lines, and `torch.save` checkpoints under
+`<output_dir>/checkpoints/`.
+
+  python -m gwdepth_tpu_torch.main --output_dir exp/ckpt_0 \\
+      --data_path ... --gt_depth_path ... --gt_seg_path ... \\
+      --gt_line_path ... --filenames_file_train ... --filenames_file_eval ... \\
+      --with_line --with_dense --with_center --num_queries 100
+
+Flags of the JAX CLI that this port does not carry yet stop the run with
+an error instead of being ignored: `--mesh` other than one device,
+`--bf16`, `--remat`, `--coco_path`, `--frozen_weights`, `--benchmark`,
+`--save_dense`, `--save_line`, `--dump_gt_lines`, and the model gates
+the port does not build (see `_refuse`). `--matcher` is accepted with
+either value: the port always solves the assignment exactly on the host.
+`--use_pallas` is accepted: on the card the kernels always run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import numpy as np
+
+from gwdepth_tpu_torch.config import GWDepthConfig, tiny_test_config
+
+
+def build_argparser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser("GW-Depth training (PyTorch/CUDA port)",
+                                add_help=True)
+    cfg = GWDepthConfig()
+    for name in ("lr", "lr_backbone", "weight_decay", "dropout", "eos_coef",
+                 "variance_focus", "set_cost_class", "set_cost_line",
+                 "line_loss_coef", "seg_loss_weight", "plane_norm_loss_coef",
+                 "min_depth_eval", "max_depth_eval"):
+        p.add_argument(f"--{name}", type=float, default=getattr(cfg, name))
+    for name in ("batch_size", "grad_accum", "epochs", "lr_drop", "seed",
+                 "num_queries", "enc_layers", "dec_layers", "hidden_dim",
+                 "nheads", "dim_feedforward", "layer1_num", "num_ref",
+                 "max_lines", "class_init_size", "dense_trans_dim",
+                 "dense_trans_heads", "class_token_dim"):
+        p.add_argument(f"--{name}", type=int, default=getattr(cfg, name))
+    p.add_argument("--pre_norm", action="store_true")
+    p.add_argument("--clip_max_norm", type=float, default=cfg.clip_max_norm)
+    p.add_argument("--backbone", type=str, default=cfg.backbone)
+    p.add_argument("--position_embedding", type=str, default="sine",
+                   choices=("sine", "v2", "learned", "v3"))
+    p.add_argument("--max_depth", type=float, default=cfg.max_depth)
+    for gate in ("with_line", "with_dense", "with_center",
+                 "with_plane_norm_loss", "with_reflection",
+                 "with_dense_center", "with_line_depth",
+                 "aux_loss_off", "eval",
+                 "log_depth_error", "bf16", "benchmark", "save_dense",
+                 "save_line", "dump_gt_lines", "no_opt"):
+        p.add_argument(f"--{gate}", action="store_true")
+    p.add_argument("--label_loss_func", type=str, default="cross_entropy",
+                   choices=("cross_entropy", "focal_loss"))
+    p.add_argument("--focal_gamma", type=float, default=2.0)
+    p.add_argument("--class_tokenfuse_layers", type=str, default="0,0,0")
+    for name in ("data_path", "gt_depth_path", "gt_seg_path", "gt_line_path",
+                 "filenames_file_train", "filenames_file_eval",
+                 "glassrgbd_images_json", "output_dir", "resume",
+                 "torch_init", "frozen_weights", "coco_path",
+                 "coco_ann_train", "coco_ann_val"):
+        p.add_argument(f"--{name}", type=str, default="")
+    p.add_argument("--save_freq", type=int, default=25)
+    p.add_argument("--eval_batch_size", type=int, default=1)
+    p.add_argument("--eval_freq", type=int, default=1)
+    p.add_argument("--matcher", type=str, default="jax",
+                   choices=("jax", "scipy"),
+                   help="accepted for compatibility: the port always solves "
+                        "the assignment exactly on the host (scipy)")
+    p.add_argument("--use_pallas", action="store_true",
+                   help="accepted for compatibility: on the card the port's "
+                        "CUDA kernels always run")
+    p.add_argument("--remat", action="store_true")
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--mesh", type=str, default="-1",
+                   help="'-1' or '1': the port trains on one device")
+    p.add_argument("--train_h", type=int, default=cfg.train_hw[0])
+    p.add_argument("--train_w", type=int, default=cfg.train_hw[1])
+    p.add_argument("--eval_h", type=int, default=cfg.eval_hw[0])
+    p.add_argument("--eval_w", type=int, default=cfg.eval_hw[1])
+    p.add_argument("--tiny", action="store_true",
+                   help="toy model dims for smoke runs (keeps every "
+                        "architectural mechanism)")
+    p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    return p
+
+
+_CFG_PASSTHROUGH = (
+    "lr", "lr_backbone", "weight_decay", "dropout", "eos_coef",
+    "variance_focus", "set_cost_class", "set_cost_line", "line_loss_coef",
+    "seg_loss_weight", "plane_norm_loss_coef", "min_depth_eval",
+    "max_depth_eval", "batch_size", "grad_accum", "epochs", "lr_drop",
+    "seed", "clip_max_norm", "backbone", "position_embedding", "pre_norm",
+    "num_queries", "enc_layers", "dec_layers", "hidden_dim", "nheads",
+    "dim_feedforward", "layer1_num", "num_ref", "max_lines", "max_depth",
+    "class_init_size", "dense_trans_dim", "dense_trans_heads",
+    "class_token_dim", "with_line", "with_dense", "with_center",
+    "with_plane_norm_loss", "with_reflection", "with_dense_center",
+    "with_line_depth", "label_loss_func", "focal_gamma", "matcher",
+    "use_pallas", "remat", "data_path", "gt_depth_path", "gt_seg_path",
+    "gt_line_path", "filenames_file_train", "filenames_file_eval",
+    "glassrgbd_images_json", "output_dir",
+)
+
+
+def _config_kwargs(args: argparse.Namespace) -> dict:
+    kw = {name: getattr(args, name) for name in _CFG_PASSTHROUGH}
+    kw.update(
+        class_tokenfuse_layers=tuple(
+            bool(int(v)) for v in args.class_tokenfuse_layers.split(",")),
+        aux_loss=not args.aux_loss_off,
+        log_depth_error=True,
+        dtype="bfloat16" if args.bf16 else "float32",
+        train_hw=(args.train_h, args.train_w),
+        eval_hw=(args.eval_h, args.eval_w),
+        mesh_shape=tuple(int(v) for v in args.mesh.split(",")),
+        mesh_axes=("data", "model")[:len(args.mesh.split(","))],
+    )
+    return kw
+
+
+def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
+    kw = _config_kwargs(args)
+    if args.tiny:
+        # only the values the user changed reach the toy config
+        defaults = _config_kwargs(build_argparser().parse_args([]))
+        kw = {k: v for k, v in kw.items() if v != defaults[k]}
+        return tiny_test_config(**kw)
+    return GWDepthConfig(**kw)
+
+
+def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
+    """Stop on a flag the port does not carry yet."""
+    unsupported = [f"--{name}" for name in (
+        "bf16", "remat", "coco_path", "frozen_weights", "benchmark",
+        "save_dense", "save_line", "dump_gt_lines", "pre_norm",
+        "with_plane_norm_loss", "with_reflection", "with_dense_center",
+        "with_line_depth") if getattr(args, name)]
+    if cfg.mesh_shape not in ((-1,), (1,)):
+        unsupported.append(f"--mesh {args.mesh}")
+    if unsupported:
+        raise SystemExit(f"{', '.join(unsupported)}: not supported by the "
+                         "PyTorch port yet")
+
+
+def load_torch_init(model, path: str) -> int:
+    """Warm start from an original-code checkpoint: every tensor whose
+    name and shape match loads (a full GlassRGBD checkpoint, or a DETR-R50
+    one for its backbone, transformer and heads)."""
+    import torch
+    from gwdepth_tpu_torch.predict import _normalize_keys
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    sd = _normalize_keys(raw.get("model", raw))
+    own = model.state_dict()
+    keep = {k: v for k, v in sd.items()
+            if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(keep, strict=False)
+    return len(keep)
+
+
+def main(argv=None):
+    args = build_argparser().parse_args(argv)
+    cfg = config_from_args(args)
+    _refuse(args, cfg)
+
+    import torch
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.engine import (evaluate, format_eval_line,
+                                          train_one_epoch)
+    from gwdepth_tpu_torch.models import build_glassrgbd
+    from gwdepth_tpu_torch.parallel import (create_train_state,
+                                            make_eval_step, make_train_step)
+    from gwdepth_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                    restore_file)
+    from gwdepth_tpu_torch.utils.logging import git_sha_banner
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda, but CUDA is not available")
+    device = torch.device(args.device)
+    cfg.set_matmul_precision()
+    out_dir = cfg.output_dir or "exp/default"
+    os.makedirs(out_dir, exist_ok=True)
+    print("git:", git_sha_banner())
+
+    seed = cfg.seed
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    model = build_glassrgbd(cfg, seed, device="cpu")
+    if args.torch_init:
+        n = load_torch_init(model, args.torch_init)
+        print(f"warm start from {args.torch_init}: {n} tensors loaded")
+    model = model.to(device)
+    n_params = sum(p.numel() for p in model.parameters())
+    print(f"model: {n_params / 1e6:.1f}M params, device: {device}")
+
+    eval_loader = Loader(GlassRGBDDataset(cfg, "val"),
+                         batch_size=args.eval_batch_size, shuffle=False,
+                         drop_last=False,
+                         pad_to_batch=args.eval_batch_size > 1,
+                         num_workers=args.num_workers)
+    eval_step = make_eval_step(cfg)
+    ckpt_dir = os.path.join(out_dir, "checkpoints")
+
+    if args.eval:
+        state = create_train_state(cfg, model)
+        CheckpointManager(ckpt_dir).restore(state)
+        stats = evaluate(cfg, model, eval_step, eval_loader, device)
+        print(format_eval_line(0, stats))
+        with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
+            f.write(format_eval_line(0, stats) + "\n")
+        return stats
+
+    train_loader = Loader(GlassRGBDDataset(cfg, "train"),
+                          batch_size=cfg.batch_size, shuffle=True, seed=seed,
+                          num_workers=args.num_workers)
+    state = create_train_state(cfg, model,
+                               steps_per_epoch=max(len(train_loader), 1))
+    train_step = make_train_step(cfg)
+    ckpt = CheckpointManager(ckpt_dir, save_freq_epochs=args.save_freq)
+    # --resume: a .pth file (this port's, or the original code's weights),
+    # another experiment's checkpoint directory, or any other value for
+    # this experiment's own rolling checkpoint; --no_opt keeps the fresh
+    # optimizer, schedule and epoch
+    start_epoch = 0
+    if args.resume:
+        if args.resume.endswith(".pth"):
+            start_epoch = restore_file(state, args.resume, args.no_opt)
+        else:
+            rdir = args.resume if os.path.isdir(args.resume) else ckpt_dir
+            start_epoch = CheckpointManager(rdir).restore(
+                state, params_only=args.no_opt)
+        print(f"resumed from {args.resume}: start epoch {start_epoch}")
+
+    print("Start training")
+    t0 = time.time()
+    for epoch in range(start_epoch, cfg.epochs):
+        state, train_stats = train_one_epoch(
+            state, train_step, train_loader, epoch, generator, device)
+        ckpt.save(epoch, state, cfg)
+        log = {"epoch": epoch,
+               **{f"train_{k}": v for k, v in train_stats.items()}}
+        if (epoch + 1) % args.eval_freq == 0:
+            stats = evaluate(cfg, model, eval_step, eval_loader, device)
+            log.update({f"test_{k}": v for k, v in stats.items()})
+            with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
+                f.write(format_eval_line(epoch, stats) + "\n")
+        with open(os.path.join(out_dir, "log.txt"), "a") as f:
+            f.write(json.dumps(log) + "\n")
+    print(f"Training time {time.time() - t0:.0f}s")
+    return state
+
+
+if __name__ == "__main__":
+    main()

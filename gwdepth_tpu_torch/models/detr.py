@@ -4,6 +4,12 @@ Names follow the original PyTorch code: `encoder.layers.N.*`,
 `decoder.layers.N.*`, `decoder.norm`, attention in torch's
 `in_proj_weight` / `in_proj_bias` / `out_proj` layout. Padding is a
 key-validity mask (True = real token).
+
+Dropout sits at the JAX package's sites (`gwdepth_tpu/models/detr.py:57,
+77,80,82,100,105,108,110`): attention weights, each residual branch and
+the FFN hidden layer. It is active only in `train()` mode and draws its
+masks from the `torch.Generator` the caller passes (the train step owns
+one), as flax draws from its "dropout" key.
 """
 
 from __future__ import annotations
@@ -17,19 +23,30 @@ import torch.nn.functional as F
 _NEG = -1e9
 
 
+def dropout(x: torch.Tensor, p: float, active: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax `nn.Dropout`: keep with probability 1 - p, scale by 1/(1-p)."""
+    if not active or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - p
+    return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
+
+
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention-compatible in/out projections around
     scaled dot-product attention with an optional key-validity mask."""
 
-    def __init__(self, d_model: int, nheads: int):
+    def __init__(self, d_model: int, nheads: int, dropout: float = 0.0):
         super().__init__()
         self.nheads = nheads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
 
     def forward(self, query, key, value,
-                key_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                key_valid: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """query (B, Nq, C), key/value (B, Nk, C), key_valid (B, Nk) bool."""
         C = query.shape[-1]
         H = self.nheads
@@ -47,46 +64,60 @@ class MultiheadAttention(nn.Module):
         if key_valid is not None:
             logits = torch.where(key_valid[:, None, None, :], logits,
                                  torch.full_like(logits, _NEG))
-        attn = torch.softmax(logits, dim=-1)
+        attn = dropout(torch.softmax(logits, dim=-1), self.dropout,
+                       self.training, generator)
         out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
         return self.out_proj(out.transpose(1, 2).reshape(B, Nq, C))
 
 
 class EncoderLayer(nn.Module):
-    def __init__(self, d_model: int, nheads: int, dim_ff: int):
+    def __init__(self, d_model: int, nheads: int, dim_ff: int,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nheads)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nheads, dropout)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, src, pos, key_valid):
+    def forward(self, src, pos, key_valid, generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
+
         qk = src + pos
-        src = self.norm1(src + self.self_attn(qk, qk, src, key_valid))
-        src2 = self.linear2(F.relu(self.linear1(src)))
-        return self.norm2(src + src2)
+        src = self.norm1(src + drop(self.self_attn(qk, qk, src, key_valid,
+                                                   generator)))
+        src2 = self.linear2(drop(F.relu(self.linear1(src))))
+        return self.norm2(src + drop(src2))
 
 
 class DecoderLayer(nn.Module):
-    def __init__(self, d_model: int, nheads: int, dim_ff: int):
+    def __init__(self, d_model: int, nheads: int, dim_ff: int,
+                 dropout: float = 0.0):
         super().__init__()
-        self.self_attn = MultiheadAttention(d_model, nheads)
-        self.multihead_attn = MultiheadAttention(d_model, nheads)
+        self.dropout = dropout
+        self.self_attn = MultiheadAttention(d_model, nheads, dropout)
+        self.multihead_attn = MultiheadAttention(d_model, nheads, dropout)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm2 = nn.LayerNorm(d_model, eps=1e-5)
         self.norm3 = nn.LayerNorm(d_model, eps=1e-5)
 
-    def forward(self, tgt, memory, pos, query_pos, key_valid):
+    def forward(self, tgt, memory, pos, query_pos, key_valid,
+                generator=None):
+        def drop(t):
+            return dropout(t, self.dropout, self.training, generator)
+
         qk = tgt + query_pos
-        tgt = self.norm1(tgt + self.self_attn(qk, qk, tgt, None))
+        tgt = self.norm1(tgt + drop(self.self_attn(qk, qk, tgt, None,
+                                                   generator)))
         tgt2 = self.multihead_attn(tgt + query_pos, memory + pos, memory,
-                                   key_valid)
-        tgt = self.norm2(tgt + tgt2)
-        tgt2 = self.linear2(F.relu(self.linear1(tgt)))
-        return self.norm3(tgt + tgt2)
+                                   key_valid, generator)
+        tgt = self.norm2(tgt + drop(tgt2))
+        tgt2 = self.linear2(drop(F.relu(self.linear1(tgt))))
+        return self.norm3(tgt + drop(tgt2))
 
 
 class _Stack(nn.Module):
@@ -104,27 +135,28 @@ class DETRTransformer(nn.Module):
     returns every decoder layer's normed state and the encoder memory."""
 
     def __init__(self, d_model: int, nheads: int, enc_layers: int,
-                 dec_layers: int, dim_ff: int):
+                 dec_layers: int, dim_ff: int, dropout: float = 0.0):
         super().__init__()
-        self.encoder = _Stack([EncoderLayer(d_model, nheads, dim_ff)
+        self.encoder = _Stack([EncoderLayer(d_model, nheads, dim_ff, dropout)
                                for _ in range(enc_layers)])
-        self.decoder = _Stack([DecoderLayer(d_model, nheads, dim_ff)
+        self.decoder = _Stack([DecoderLayer(d_model, nheads, dim_ff, dropout)
                                for _ in range(dec_layers)],
                               nn.LayerNorm(d_model, eps=1e-5))
 
-    def forward(self, src, pos, key_valid, query_embed
+    def forward(self, src, pos, key_valid, query_embed,
+                generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """src/pos (B, N, C); key_valid (B, N) bool; query_embed (Q, C).
         Returns hs (L, B, Q, C) and memory (B, N, C)."""
         B = src.shape[0]
         memory = src
         for layer in self.encoder.layers:
-            memory = layer(memory, pos, key_valid)
+            memory = layer(memory, pos, key_valid, generator)
         query_pos = query_embed[None].expand(B, -1, -1)
         out = torch.zeros_like(query_pos)
         inter = []
         for layer in self.decoder.layers:
-            out = layer(out, memory, pos, query_pos, key_valid)
+            out = layer(out, memory, pos, query_pos, key_valid, generator)
             inter.append(self.decoder.norm(out))
         return torch.stack(inter, dim=0), memory
 

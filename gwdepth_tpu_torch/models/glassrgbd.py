@@ -13,6 +13,11 @@ validity mask. Output dict, as the JAX package's:
 
 State-dict names are the original PyTorch code's (`backbone.0.body.*`,
 `transformer.encoder.layers.N.*`, `dense_encoder.*`, `depth_decoder.*`).
+
+Training: the backbone stem (`conv1`, `layer1`; its frozen BatchNorms are
+buffers) is built with `requires_grad=False`, the JAX package's "frozen"
+parameter group. Dropout (DETR only, `cfg.dropout`) is active in
+`train()` mode and draws from the `generator` passed to `forward`.
 """
 
 from __future__ import annotations
@@ -43,11 +48,14 @@ class GlassRGBD(nn.Module):
         self.cfg = cfg
         C4 = cfg.backbone_channels[cfg.layer1_num]
         self.backbone = nn.ModuleList([BackboneBody(cfg.backbone)])
+        body = self.backbone[0].body
+        for frozen in (body.conv1, body.layer1):
+            frozen.requires_grad_(False)
         self.input_proj = nn.Conv2d(C4, cfg.hidden_dim, 1)
         self.query_embed = nn.Embedding(cfg.num_queries, cfg.hidden_dim)
         self.transformer = DETRTransformer(
             cfg.hidden_dim, cfg.nheads, cfg.enc_layers, cfg.dec_layers,
-            cfg.dim_feedforward)
+            cfg.dim_feedforward, cfg.dropout)
         self.class_embed = nn.Linear(cfg.hidden_dim, cfg.num_classes + 1)
         self.lines_embed = MLP(cfg.hidden_dim, cfg.hidden_dim, cfg.line_dim, 3)
         self.dense_input_proj = nn.Conv2d(C4, cfg.dense_trans_dim, 1)
@@ -56,9 +64,11 @@ class GlassRGBD(nn.Module):
             cfg.dense_trans_dim // 8, cfg.max_depth, cfg.class_token_dim)
 
     def forward(self, images: torch.Tensor,
-                valid_mask: Optional[torch.Tensor] = None
+                valid_mask: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None
                 ) -> Dict[str, object]:
-        """images (B, H, W, 3) normalized; valid_mask (B, H, W) bool."""
+        """images (B, H, W, 3) normalized; valid_mask (B, H, W) bool;
+        `generator` feeds the dropout masks in train mode."""
         cfg = self.cfg
         B, H, W, _ = images.shape
         if valid_mask is None:
@@ -78,7 +88,7 @@ class GlassRGBD(nn.Module):
         hs, _ = self.transformer(proj.reshape(B, N, cfg.hidden_dim),
                                  pos.reshape(B, N, cfg.hidden_dim),
                                  src_mask.reshape(B, N),
-                                 self.query_embed.weight)
+                                 self.query_embed.weight, generator)
         logits = self.class_embed(hs)
         coords = torch.sigmoid(self.lines_embed(hs))
         out["pred_logits"] = logits[-1]

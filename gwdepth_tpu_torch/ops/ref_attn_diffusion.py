@@ -11,6 +11,18 @@ A CUDA tensor launches the hand-written kernel
 `gwdepth_tpu/ops/pallas_kernels.py:ref_attn_diffusion_pallas`); a CPU
 tensor takes `ref_attn_diffusion_plain`. Nothing falls back: a CUDA
 tensor the kernel cannot take raises.
+
+Gradients: `ref_attn_diffusion` is a `torch.autograd.Function`. Its
+backward recomputes from the saved inputs and differentiates the 3-step
+diffusion formulation (`diffusion_torch`: `F.conv2d`, parameter-free
+LayerNorm, exact GELU), as the JAX package's `_diff_bwd` differentiates
+`swin.py:diffusion_xla` (`gwdepth_tpu/ops/pallas_kernels.py:151-155`).
+The JAX package has no backward kernel for K1, so the port has none
+either: the backward is plain PyTorch on every device. On the card its
+convolutions run at cuDNN's precision setting
+(`torch.backends.cudnn.allow_tf32`), which the entry points set from the
+config's dtype: full float32 for the shipped config
+(`GWDepthConfig.set_matmul_precision`).
 """
 
 from __future__ import annotations
@@ -108,13 +120,47 @@ def _lib():
     return lib
 
 
+def diffusion_torch(a: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """The diffusion in PyTorch's own ops (the backward's formulation):
+    NCHW `F.conv2d`, `F.layer_norm` over the (P, R) plane, exact GELU."""
+    P, R = a.shape[1], a.shape[2]
+    x = a.float().permute(0, 3, 1, 2)
+    wt = w.float().permute(3, 2, 0, 1)
+    for _ in range(3):
+        u = F.conv2d(x, wt, b.float(), padding=1)
+        x = x + F.gelu(F.layer_norm(u, (P, R), eps=1e-5))
+    return x.permute(0, 2, 3, 1)
+
+
+class _RefAttnDiffusion(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, w, b):
+        ctx.save_for_backward(a, w, b)
+        if a.device.type == "cpu":
+            return ref_attn_diffusion_plain(a, w, b)
+        return _launch(a, w, b)
+
+    @staticmethod
+    def backward(ctx, ct):
+        a, w, b = ctx.saved_tensors
+        with torch.enable_grad():
+            prim = [t.detach().requires_grad_() for t in (a, w, b)]
+            y = diffusion_torch(*prim)
+            grads = torch.autograd.grad(y, prim, ct.float())
+        return tuple(g.to(t.dtype) for g, t in zip(grads, (a, w, b)))
+
+
 def ref_attn_diffusion(a: torch.Tensor, w: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
-    """a (B, P, R, H), w (3, 3, H, H), b (H,) -> diffused a. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    if a.device.type == "cpu":
-        return ref_attn_diffusion_plain(a, w, b)
-    return _launch(a, w, b)
+    """a (B, P, R, H), w (3, 3, H, H), b (H,) -> diffused a,
+    differentiable. CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    return _RefAttnDiffusion.apply(a, w, b)
 
 
 ref_attn_diffusion.launches = 0
+
+
+def reset_counts() -> None:
+    ref_attn_diffusion.launches = 0

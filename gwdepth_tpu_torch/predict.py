@@ -143,6 +143,7 @@ def main(argv=None):
     cfg = tiny_test_config() if args.tiny else GWDepthConfig(dropout=0.0)
     if args.eval_h and args.eval_w:
         cfg = cfg.replace(eval_hw=(args.eval_h, args.eval_w))
+    cfg.set_matmul_precision()
 
     files = list_images(args.images)
     if not files:

@@ -28,7 +28,10 @@ def dev():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card and nvcc: the CUDA kernels have "
                     "no interpret mode")
+    # full float32 on both sides: K1's backward runs F.conv2d, which
+    # cuDNN would otherwise run in TF32
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -99,3 +102,82 @@ def test_k2_kernel_rejects_wide_output(dev):
     x, w, g, b, _ = _k2_inputs(4, 4, 257, dev, H=3, W=3)
     with pytest.raises(ValueError, match="Co <="):
         port_fc.conv3x3_ln_act(x, w, g, b, act="gelu")
+
+
+# ---------------------------------------------------------------------------
+# gradients: each kernel's autograd.Function against autograd through its
+# plain version, on the card. Tolerance 1e-4 of max(1, the call's largest
+# |reference gradient|): both float32, the weight gradient sums over every
+# pixel in another order, and K1's bias gradient is zero in exact
+# arithmetic (its LayerNorm removes a per-head constant), so it holds
+# float noise of the size of the others.
+# ---------------------------------------------------------------------------
+
+def _grads(fn, inputs, ct):
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    y = fn(*leaves)
+    return y, torch.autograd.grad(y, leaves, ct)
+
+
+def _close_scaled(got, want):
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, atol=TOL * scale, rtol=0)
+
+
+@pytest.mark.parametrize("act", [None, "gelu", "elu"])
+@pytest.mark.parametrize("ci,co,ln,res", [(30, 60, True, False),
+                                          (300, 120, True, False),
+                                          (160, 160, False, False),
+                                          (3, 5, True, True)])
+def test_k2_function_grads_match_plain_autograd(dev, act, ci, co, ln, res):
+    x, w, g, b, r = _k2_inputs(5, ci, co, dev, B=2, H=11, W=37)
+    args = [x, w] + ([g, b] if ln else []) + ([r] if res else [])
+    ct = torch.randn(2, 11, 37, co, device=dev,
+                     generator=torch.Generator(dev).manual_seed(ci))
+
+    def call(fn):
+        def f(*t):
+            t = list(t)
+            xx, ww = t[0], t[1]
+            gg, bb = (t[2], t[3]) if ln else (None, None)
+            rr = t[-1] if res else None
+            return fn(xx, ww, gg, bb, rr, act)
+        return f
+
+    port_fc.reset_counts()
+    y, got = _grads(call(port_fc.conv3x3_ln_act), args, ct)
+    torch.cuda.synchronize()
+    assert y.grad_fn is not None
+    assert port_fc.conv3x3_ln_act.launches == 1
+    # the recompute, then dx in pieces of at most MAX_CO channels
+    assert port_fc.conv3x3_ln_act.bwd_launches == 1 + -(-ci // port_fc.MAX_CO)
+    _, want = _grads(call(port_fc.conv3x3_ln_act_plain), args, ct)
+    _close_scaled(got, want)
+
+
+def test_k1_function_grads_match_plain_autograd(dev):
+    a, w, b = _k1_inputs(6, (2, 98, 40, 16), dev)
+    ct = torch.randn(a.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(1))
+    before = port_k1.ref_attn_diffusion.launches
+    y, got = _grads(port_k1.ref_attn_diffusion, (a, w, b), ct)
+    assert y.grad_fn is not None
+    assert port_k1.ref_attn_diffusion.launches == before + 1
+    _, want = _grads(port_k1.ref_attn_diffusion_plain, (a, w, b), ct)
+    _close_scaled(got, want)
+
+
+def test_cuda_outputs_carry_grad_fn_only_when_inputs_require_grad(dev):
+    """A CUDA launch goes through ctypes on raw pointers; the autograd
+    Functions around it keep the graph."""
+    x, w, g, b, _ = _k2_inputs(7, 8, 16, dev, H=4, W=9)
+    assert port_fc.conv3x3_ln_act(x, w, g, b, act="gelu").grad_fn is None
+    w.requires_grad_()
+    y = port_fc.conv3x3_ln_act(x, w, g, b, act="gelu")
+    assert y.grad_fn is not None and y.is_cuda
+    a, kw, kb = _k1_inputs(8, (1, 14, 6, 4), dev)
+    kb.requires_grad_()
+    assert port_k1.ref_attn_diffusion(a, kw, kb).grad_fn is not None
+    with torch.no_grad():
+        assert port_k1.ref_attn_diffusion(a, kw, kb).grad_fn is None

@@ -51,7 +51,12 @@ def _imported_names(tree: ast.AST):
 def test_port_files_found():
     assert "gwdepth_tpu_torch/__init__.py" in PORT_FILES
     assert "gwdepth_tpu_torch/ops/fused_conv.py" in PORT_FILES
-    assert len(PORT_FILES) >= 20
+    for rel in ("main.py", "engine.py", "ops/lap.py", "losses/criterion.py",
+                "parallel/train_state.py", "parallel/train_step.py",
+                "data/batch.py", "data/dataset.py", "tools/synthetic.py",
+                "utils/logging.py", "utils/checkpoint.py"):
+        assert f"gwdepth_tpu_torch/{rel}" in PORT_FILES, rel
+    assert len(PORT_FILES) >= 35
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
@@ -99,6 +104,13 @@ with torch.no_grad():
 assert tuple(out['pred_depth'][-1].shape) == (1, H, W)
 assert tuple(out['pred_seg'].shape) == (1, H, W, 2)
 assert all(torch.isfinite(d).all() for d in out['pred_depth'])
+
+from gwdepth_tpu_torch.data.batch import dummy_batch
+from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+state = create_train_state(cfg, model)
+state, logs = make_train_step(cfg)(state, dummy_batch(cfg, 2),
+                                   torch.Generator().manual_seed(0))
+assert torch.isfinite(logs).all() and state.step == 1
 loaded = sorted(m for m in sys.modules
                 if m.split('.')[0] in BLOCKED and sys.modules[m] is not None)
 assert not loaded, loaded

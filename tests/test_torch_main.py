@@ -1,0 +1,140 @@
+"""The port's training CLI, `gwdepth_tpu_torch.main`, on the CPU.
+
+Two epochs of the tiny config on four small synthetic scenes: it writes
+`log.txt` and `eval_results.txt` in the JAX package's formats and a
+checkpoint, `--resume` continues from the next epoch with the optimizer
+state, `--eval` reads the checkpoint back, and every flag the port does
+not carry stops the run.
+"""
+
+import ast
+import json
+import re
+
+import pytest
+import torch
+
+from gwdepth_tpu.engine import format_eval_line as jax_format_eval_line
+from gwdepth_tpu.main import build_argparser as jax_build_argparser
+
+from gwdepth_tpu_torch import main as pmain
+from gwdepth_tpu_torch.engine import format_eval_line
+from gwdepth_tpu_torch.tools.synthetic import generate_dataset
+
+TRAIN_KEYS = ["cardinality_error", "loss", "loss_ce", "loss_ce_0",
+              "loss_depth_1", "loss_depth_1_16", "loss_depth_1_4",
+              "loss_depth_1_8", "loss_line", "loss_line_0", "loss_seg"]
+TEST_KEYS = ["silog", "abs_rel", "log10", "rms", "sq_rel", "log_rms", "d1",
+             "d2", "d3", "iou_background", "iou_glass", "mean_iou",
+             "pixel_accuracy", "mean_accuracy", "loss_ce", "loss_line",
+             "cardinality_error"]
+
+
+def _args(root, out, *extra):
+    return ["--tiny", "--device", "cpu", "--num_workers", "2",
+            "--with_line", "--with_dense", "--with_center",
+            "--data_path", f"{root}/rgb", "--gt_depth_path", f"{root}/depth",
+            "--gt_seg_path", f"{root}/seg", "--gt_line_path", f"{root}/lines",
+            "--filenames_file_train", f"{root}/train.txt",
+            "--filenames_file_eval", f"{root}/val.txt",
+            "--output_dir", str(out), *extra]
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    root = tmp_path_factory.mktemp("ds")
+    generate_dataset(str(root), 4, 2, height=96, width=128, seed=1)
+    out = tmp_path_factory.mktemp("exp")
+    pmain.main(_args(root, out, "--epochs", "2"))
+    first_log = (out / "log.txt").read_text()
+    ckpt = torch.load(out / "checkpoints" / "checkpoint.pth",
+                      weights_only=False)
+    pmain.main(_args(root, out, "--epochs", "3", "--resume", "auto"))
+    return dict(root=root, out=out, first_log=first_log, ckpt=ckpt)
+
+
+def test_main_writes_jax_format_logs(run):
+    lines = [json.loads(l) for l in
+             (run["out"] / "log.txt").read_text().splitlines()]
+    assert [l["epoch"] for l in lines] == [0, 1, 2]
+    want = ["epoch"] + [f"train_{k}" for k in TRAIN_KEYS] \
+        + [f"test_{k}" for k in TEST_KEYS]
+    for l in lines:
+        assert list(l) == want
+        assert all(isinstance(v, (int, float)) for v in l.values())
+        assert all(v == v for v in l.values())           # no NaN
+    evals = (run["out"] / "eval_results.txt").read_text().splitlines()
+    assert len(evals) == 3
+    for epoch, (line, log) in enumerate(zip(evals, lines)):
+        stats = {k[5:]: v for k, v in log.items() if k.startswith("test_")}
+        assert line == jax_format_eval_line(epoch, stats) \
+            == format_eval_line(epoch, stats)
+        m = re.fullmatch(r"oneline eval epoch(\d+) depth:(\{.*\}) "
+                         r"segmentation:(\{.*\})", line)
+        assert int(m.group(1)) == epoch
+        assert len(ast.literal_eval(m.group(2))) == 9
+        assert len(ast.literal_eval(m.group(3))) == 5
+
+
+def test_main_checkpoint_and_resume(run):
+    ck = run["ckpt"]
+    assert ck["epoch"] == 1 and ck["step"] == 4           # 2 steps/epoch
+    assert set(ck) >= {"model", "optimizer", "lr_scheduler", "args"}
+    assert ck["args"]["batch_size"] == 2
+    assert "backbone.0.body.layer2.0.conv1.weight" in ck["model"]
+    # the resumed run trained exactly one more epoch on top
+    assert (run["out"] / "log.txt").read_text().startswith(run["first_log"])
+    final = torch.load(run["out"] / "checkpoints" / "checkpoint.pth",
+                       weights_only=False)
+    assert final["epoch"] == 2 and final["step"] == 6
+    stem = "backbone.0.body.conv1.weight"
+    assert torch.equal(final["model"][stem], ck["model"][stem])
+    moved = "transformer.decoder.layers.0.linear1.weight"
+    assert not torch.equal(final["model"][moved], ck["model"][moved])
+
+
+def test_main_eval_only_reads_the_checkpoint(run):
+    stats = pmain.main(_args(run["root"], run["out"], "--eval"))
+    assert set(stats) == set(TEST_KEYS)
+    last = (run["out"] / "eval_results.txt").read_text().splitlines()[-1]
+    assert last == format_eval_line(0, stats)
+
+
+def test_main_flags_and_defaults_match_jax():
+    ours = {a.dest: a.default for a in pmain.build_argparser()._actions}
+    theirs = {a.dest: a.default for a in jax_build_argparser()._actions}
+    assert ours.pop("device") == "cuda"
+    assert ours == theirs
+
+
+@pytest.mark.parametrize("flag", [
+    ["--mesh", "4,2"], ["--mesh", "8"], ["--bf16"], ["--remat"],
+    ["--coco_path", "x"], ["--frozen_weights", "x.pth"], ["--benchmark"],
+    ["--save_dense"], ["--save_line"], ["--dump_gt_lines"], ["--pre_norm"],
+    ["--with_plane_norm_loss"], ["--with_reflection"]])
+def test_main_refuses_what_the_port_lacks(tmp_path, flag):
+    with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
+        pmain.main(_args(tmp_path, tmp_path / "o", *flag))
+
+
+def test_torch_init_and_weights_only_resume_load_original_names(tmp_path):
+    """An original-code checkpoint (DDP prefix, legacy `bbox_embed` name,
+    no optimizer) loads by name: as a warm start, and as a `--resume`
+    `.pth`, which restores the weights and starts at epoch 0."""
+    from gwdepth_tpu_torch.config import tiny_test_config
+    from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD, init_weights
+    from gwdepth_tpu_torch.parallel import create_train_state
+    from gwdepth_tpu_torch.utils.checkpoint import restore_file
+
+    cfg = tiny_test_config()
+    src = init_weights(GlassRGBD(cfg), 5)
+    sd = {("module." + k).replace("lines_embed", "bbox_embed"): v
+          for k, v in src.state_dict().items()}
+    torch.save({"model": sd}, tmp_path / "orig.pth")
+    for load in (lambda m: pmain.load_torch_init(m, tmp_path / "orig.pth"),
+                 lambda m: restore_file(create_train_state(cfg, m),
+                                        tmp_path / "orig.pth")):
+        model = init_weights(GlassRGBD(cfg), 6)
+        assert load(model) in (0, len(sd))
+        for k, v in src.state_dict().items():
+            assert torch.equal(model.state_dict()[k], v), k
