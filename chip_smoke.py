@@ -18,7 +18,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   4. model    GlassRGBD(GWDepthConfig(dropout=0.0)) at 768x1024, batch 1,
               weights from a seed (the repo holds no checkpoint): one
               forward on the card with the launch counts zeroed just before
-              and read just after (K1 must launch 4 times, K2 25 times),
+              and read just after (K1 must launch 4 times, K2 25 times, K3
+              and K4 not at all),
               output shapes and finiteness, the median forward time, a
               torch.profiler breakdown of one forward's device time (by
               kernel name, and the device's idle share), and the same
@@ -44,10 +45,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               torch.profiler split of one step;
   8. train card vs CPU  one train step's losses and every gradient tensor
               at the shipped widths on a 128x192 canvas, dropout 0, the
-              same weights and batch on both devices.
+              same weights and batch on both devices;
+  9. window attention  the entries that reach K3 (windowed MSA) and K4
+              (layout fence), which no model path calls: one forward of
+              the shipped model at 768x1024 bs1 and one at 704x1024 bs2
+              record the q, k, v, bias and mask of every `swin.window_msa`
+              site (9 at 768x1024) and the input of every class-attention
+              module (5); with the launch counts zeroed just before and
+              read just after, `swin.window_msa(use_pallas=True)` runs at
+              the 9 serving sites (against the model's own result and the
+              plain version) and `fused_window_attention` at the 5 serving
+              class sites with each module's weights (against the module's
+              projection output) and, forward and backward, at the 5 train
+              sites (gradients against autograd through the plain
+              version); K4 must launch once per fused call, K3 once per
+              kernel or fused call; then kernel, plain, SDPA-library and
+              bound times per site.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
-train step), and the last line is {"ok": true, "device": {...}}.
+train step; K3 and K4: the phase-9 launches beside those counted in
+phase 4's forward and phase 7's first train run, times summed over its
+serving sites, `train_*` over its train sites), and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -68,10 +87,11 @@ import torch.nn.functional as F
 
 from gwdepth_tpu_torch import _build
 from gwdepth_tpu_torch.config import GWDepthConfig
-from gwdepth_tpu_torch.models import build_glassrgbd
+from gwdepth_tpu_torch.models import build_glassrgbd, swin
 from gwdepth_tpu_torch.ops import fused_conv
 from gwdepth_tpu_torch.ops.fused_conv import (conv3x3_ln_act,
                                               conv3x3_ln_act_plain, link_key)
+from gwdepth_tpu_torch.ops import window_msa as wm
 from gwdepth_tpu_torch.ops.ref_attn_diffusion import (
     diffusion_torch, ref_attn_diffusion, ref_attn_diffusion_plain)
 
@@ -84,6 +104,9 @@ PEAK_BYTES_S = 3.35e12
 # after a LayerNorm, far below this
 K1_TOL = 1e-4
 K2_TOL = 1e-4
+# K3 against its plain version and the model's einsum/softmax path, all
+# float32 without TF32: reassociation of 49-term sums and of the softmax
+K3_TOL = 1e-4
 # card vs CPU forward: lines and logits come from the backbone and DETR in
 # float32, so they agree tightly; depth and seg additionally pass through
 # two discrete choices (certain_sample's top-S, the top-20 reference
@@ -346,16 +369,22 @@ def phase_model(card: str):
         torch.cuda.synchronize()
         ref_attn_diffusion.launches = 0
         fused_conv.reset_counts()
+        wm.reset_counts()
         out = model(x)
         torch.cuda.synchronize()
         k1_n = ref_attn_diffusion.launches
         k2_n = conv3x3_ln_act.launches
         k2_links = dict(conv3x3_ln_act.shape_launches)
-    log(f"[model] launches in one forward: K1 {k1_n}, K2 {k2_n}")
+        k34_n = {"k3": wm.window_msa_kernel.launches,
+                 "k4": wm.layout_fence.launches}
+    log(f"[model] launches in one forward: K1 {k1_n}, K2 {k2_n}, "
+        f"K3 {k34_n['k3']}, K4 {k34_n['k4']}")
     for key, n in sorted(k2_links.items(), key=str):
         log(f"[model]   K2 link {key}: {n}")
     assert k1_n == 4, f"K1 launched {k1_n} times, expected 4"
     assert k2_n == 25, f"K2 launched {k2_n} times, expected 25"
+    # as in the JAX package, no model module calls K3 or K4
+    assert k34_n == {"k3": 0, "k4": 0}, f"K3/K4 on the model path: {k34_n}"
 
     Q = cfg.num_queries
     expect = {"pred_logits": (1, Q, 2), "pred_lines": (1, Q, cfg.line_dim),
@@ -400,7 +429,7 @@ def phase_model(card: str):
         assert cmp[k] <= DENSE_REL_L2_TOL, \
             f"{k}: card vs CPU rel L2 {cmp[k]} > {DENSE_REL_L2_TOL}"
     log("[model] card vs CPU: " + json.dumps(cmp))
-    return k1_n, k2_n, k2_links
+    return k1_n, k2_n, k2_links, k34_n
 
 
 # ---------------------------------------------------------------------------
@@ -632,6 +661,8 @@ def _counts():
     return {"k1": ref_attn_diffusion.launches,
             "k2": conv3x3_ln_act.launches,
             "k2_bwd": conv3x3_ln_act.bwd_launches,
+            "k3": wm.window_msa_kernel.launches,
+            "k4": wm.layout_fence.launches,
             "matcher_calls": match_lines.calls}
 
 
@@ -640,14 +671,16 @@ def _reset_counts():
     from gwdepth_tpu_torch.ops.lap import match_lines
     k1_mod.reset_counts()
     fused_conv.reset_counts()
+    wm.reset_counts()
     match_lines.calls = 0
     match_lines.solve_seconds = 0.0
 
 
 def _expected_counts(steps: int, eval_forwards: int) -> dict:
+    # no model module calls K3 or K4, as in the JAX package
     return {"k1": K1_PER_FORWARD * (steps + eval_forwards),
             "k2": K2_FWD_PER_FORWARD * (steps + eval_forwards),
-            "k2_bwd": K2_BWD_PER_STEP * steps,
+            "k2_bwd": K2_BWD_PER_STEP * steps, "k3": 0, "k4": 0,
             "matcher_calls": steps + eval_forwards}
 
 
@@ -794,6 +827,347 @@ def phase_train_card_vs_cpu():
     return summary
 
 
+# ---------------------------------------------------------------------------
+# window-attention phase (K3, K4)
+# ---------------------------------------------------------------------------
+
+# window_msa sites of one forward: the 1/32 ref layer (4 blocks) and the
+# class layers at 1/16, 1/8 (2 blocks each) and 1/4 (1 block), every
+# second block with the shift mask; the class blocks' windows at bs2
+# 704x1024
+SERVE_MSA_SITES = 9
+CLASS_SITES = 5
+TRAIN_CLASS_NW = (70, 70, 247, 247, 962)
+
+
+def capture_window_sites(model, x):
+    """One no-grad forward of `model` on x, recording the arguments and
+    result of every `swin.window_msa` call and the module, input, mask and
+    projection output of every `WindowClassAttention`."""
+    msa, cls = [], []
+    inner = swin.window_msa
+
+    def record(q, k, v, bias, mask, use_pallas=False):
+        out = inner(q, k, v, bias, mask, use_pallas)
+        msa.append((q, k, v, bias, mask, out))
+        return out
+
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: cls.append((mod, args[0], args[3], out[0])))
+        for m in model.modules() if isinstance(m, swin.WindowClassAttention)]
+    swin.window_msa = record
+    try:
+        with torch.no_grad():
+            model(x)
+        torch.cuda.synchronize()
+    finally:
+        swin.window_msa = inner
+        for h in hooks:
+            h.remove()
+    return msa, cls
+
+
+def _class_weights(mod):
+    return (mod.qkv.weight, mod.qkv.bias, mod.proj.weight, mod.proj.bias,
+            mod.rel_pos_bias())
+
+
+def _scaled_err(got, want) -> float:
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+def k3_bound(q, mask) -> dict:
+    """K3's least time: per (window, head) 4 N^2 hd product FLOPs and 6
+    softmax operations per logit (bias add, max, subtract, exp, sum,
+    divide; 7 with the mask); q, k, v, bias, mask read once, out written
+    once."""
+    B, nW, H, N, hd = q.shape
+    per_logit = 7 if mask is not None else 6
+    flops = B * nW * H * N * N * (4 * hd + per_logit)
+    nbytes = 4 * (4 * q.numel() + H * N * N
+                  + (nW * N * N if mask is not None else 0))
+    return bound_fields(flops, nbytes)
+
+
+def fence_bound(x) -> dict:
+    return bound_fields(0, 2 * x.numel() * x.element_size())
+
+
+def sdpa_inputs(q, k, v, bias, mask):
+    """q, k, v as contiguous (B*nW, H, N, hd) and the float attn_mask
+    bias (+ mask) as a contiguous (B*nW, H, N, N) for
+    `F.scaled_dot_product_attention` (yardstick only)."""
+    B, nW, H, N, hd = q.shape
+    qkv = [t.reshape(B * nW, H, N, hd).contiguous() for t in (q, k, v)]
+    am = bias[None] if mask is None else bias[None] + mask[:, None]
+    return qkv, am.expand(B, nW, H, N, N).reshape(B * nW, H, N, N) \
+        .contiguous()
+
+
+def sdpa_backend(qs, ks, vs, am) -> str:
+    """The backend SDPA's dispatcher picks for these inputs."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(
+        qs, ks, vs, attn_mask=am, dropout_p=0.0, is_causal=False,
+        scale=1.0)).name.lower()
+
+
+def graph_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of `fn` without the host's launch path:
+    `reps` calls captured in one CUDA graph, the median replay time (CUDA
+    events, as `time_ms`) divided by `reps`."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    return time_ms(g.replay, reps=10, warmup=2) / reps
+
+
+def timed(kernel, plain, library) -> dict:
+    """Event times per call (`time_ms`, the host's launch path included)
+    and device times per call (`graph_ms`) of a kernel, its plain version
+    and its library yardstick."""
+    rec = {}
+    for name, fn in (("kernel", kernel), ("plain", plain),
+                     ("library", library)):
+        rec[f"{name}_ms"] = time_ms(fn)
+        rec[f"{name}_device_ms"] = graph_ms(fn)
+    return rec
+
+
+def _sdpa_out(o, B, nW):
+    """SDPA's (B*nW, H, N, hd) as K3's (B, nW, N, H*hd)."""
+    _, H, N, hd = o.shape
+    return o.reshape(B, nW, H, N, hd).movedim(2, 3).reshape(B, nW, N, H * hd)
+
+
+def phase_window_attention(rng):
+    t0 = time.perf_counter()
+    cfg = GWDepthConfig(dropout=0.0)
+    model = build_glassrgbd(cfg, SEED, device="cuda")
+    x_serve = torch.from_numpy(rng.normal(size=(1, H_IMG, W_IMG, 3))
+                               .astype(np.float32)).to("cuda")
+    x_train = torch.from_numpy(rng.normal(size=(TRAIN_BS, *TRAIN_HW, 3))
+                               .astype(np.float32)).to("cuda")
+    msa, cls = capture_window_sites(model, x_serve)
+    _, cls_train = capture_window_sites(model, x_train)
+    shapes = [tuple(s[0].shape) for s in msa]
+    log(f"[window] sites of the {H_IMG}x{W_IMG} bs1 forward: "
+        + json.dumps([[*sh, s[4] is not None] for sh, s in zip(shapes, msa)]))
+    assert len(msa) == SERVE_MSA_SITES, len(msa)
+    assert len(cls) == len(cls_train) == CLASS_SITES
+    assert [c[1].shape[1] for c in cls_train] == list(TRAIN_CLASS_NW), \
+        [tuple(c[1].shape) for c in cls_train]
+    cts = [torch.from_numpy(rng.normal(size=tuple(c[1].shape))
+                            .astype(np.float32)).to("cuda")
+           for c in cls_train]
+
+    # the main path of this slice: counts zeroed just before, read after
+    torch.cuda.synchronize()
+    wm.reset_counts()
+    with torch.no_grad():
+        serve_out = [swin.window_msa(q, k, v, bias, mask, use_pallas=True)
+                     for q, k, v, bias, mask, _ in msa]
+        fused_out = [wm.fused_window_attention(x, *_class_weights(mod), mask,
+                                               mod.num_heads)
+                     for mod, x, mask, _ in cls]
+    train = []
+    for (mod, x, mask, _), ct in zip(cls_train, cts):
+        leaves = _leaves(x, *_class_weights(mod))
+        y = wm.fused_window_attention(*leaves, mask, mod.num_heads)
+        assert y.grad_fn is not None, "fused entry output has no grad_fn"
+        train.append((leaves, y, torch.autograd.grad(y, leaves, ct,
+                                                     retain_graph=True)))
+    torch.cuda.synchronize()
+    n_k3 = wm.window_msa_kernel.launches
+    n_k4 = wm.layout_fence.launches
+    log(f"[window] launches: K3 {n_k3}, K4 {n_k4}")
+    assert n_k4 == 2 * CLASS_SITES, n_k4
+    assert n_k3 == SERVE_MSA_SITES + 2 * CLASS_SITES, n_k3
+
+    sites = []
+    with torch.no_grad():
+        for (q, k, v, bias, mask, model_out), got in zip(msa, serve_out):
+            plain = wm.window_msa_plain(q, k, v, bias, mask)
+            (qs, ks, vs), am = sdpa_inputs(q, k, v, bias, mask)
+            B, nW = q.shape[:2]
+
+            def lib():
+                return F.scaled_dot_product_attention(qs, ks, vs,
+                                                      attn_mask=am, scale=1.0)
+
+            rec = {"site": list(q.shape), "mask": mask is not None,
+                   "max_err": float((got - plain).abs().max()),
+                   "model_max_err": float((got - model_out).abs().max()),
+                   "library_max_err": float(
+                       (_sdpa_out(lib(), B, nW) - plain).abs().max()),
+                   "library_backend": sdpa_backend(qs, ks, vs, am),
+                   **timed(lambda: wm.window_msa_kernel(q, k, v, bias, mask),
+                           lambda: wm.window_msa_plain(q, k, v, bias, mask),
+                           lib),
+                   **k3_bound(q, mask)}
+            assert torch.isfinite(got).all(), f"K3 {rec['site']} not finite"
+            assert rec["max_err"] <= K3_TOL and \
+                rec["model_max_err"] <= K3_TOL, rec
+            log("[window] K3 " + json.dumps(rec))
+            sites.append(rec)
+
+        fused = []
+        for (mod, x, mask, model_out), got in zip(cls, fused_out):
+            w = _class_weights(mod)
+            H = mod.num_heads
+            xf = x.reshape(-1, *x.shape[2:])
+            copy_to = torch.empty_like(xf)
+            rec = {"x": list(x.shape), "mask": mask is not None,
+                   "max_scaled_err": _scaled_err(got, model_out),
+                   "plain_max_scaled_err": _scaled_err(
+                       got, wm.fused_window_attention_plain(x, *w, mask,
+                                                            H)),
+                   "fused_ms": time_ms(lambda: wm.fused_window_attention(
+                       x, *w, mask, H)),
+                   "fused_plain_ms": time_ms(
+                       lambda: wm.fused_window_attention_plain(x, *w, mask,
+                                                               H)),
+                   "fence": {"max_err": float(
+                       (wm.layout_fence(xf) - xf).abs().max()),
+                       **timed(lambda: wm.layout_fence(xf),
+                               lambda: wm.layout_fence_plain(xf),
+                               lambda: copy_to.copy_(xf)),
+                       **fence_bound(xf)}}
+            assert rec["max_scaled_err"] <= K3_TOL and \
+                rec["plain_max_scaled_err"] <= K3_TOL, rec
+            assert rec["fence"]["max_err"] == 0, "K4 is not the identity"
+            log("[window] fused " + json.dumps(rec))
+            fused.append(rec)
+
+    train_recs = []
+    for (mod, x, mask, _), ct, (leaves, y, got) in zip(cls_train, cts,
+                                                       train):
+        H = mod.num_heads
+        y_plain = wm.fused_window_attention_plain(*leaves, mask, H)
+        want = torch.autograd.grad(y_plain, leaves, ct, retain_graph=True)
+        fwd_err = _scaled_err(y.detach(), y_plain.detach())
+        err = _max_scaled_err(got, want)
+        assert all(torch.isfinite(g).all() for g in got), "grad not finite"
+        assert fwd_err <= K3_TOL, f"fused {tuple(x.shape)}: {fwd_err}"
+        assert err <= GRAD_TOL, f"fused bwd {tuple(x.shape)}: {err}"
+        B, nW, N, C = x.shape
+        with torch.no_grad():
+            xf = x.reshape(B * nW, N, C)
+            q, k, v = wm._split_qkv(F.linear(xf, mod.qkv.weight,
+                                             mod.qkv.bias), B, H)
+            q = q * (C // H) ** -0.5
+            bias = mod.rel_pos_bias()
+            (qs, ks, vs), am = sdpa_inputs(q, k, v, bias, mask)
+            copy_to = torch.empty_like(xf)
+            w = _class_weights(mod)
+            rec = {"x": list(x.shape), "mask": mask is not None,
+                   "fwd_max_scaled_err": fwd_err, "bwd_max_scaled_err": err,
+                   "library_backend": sdpa_backend(qs, ks, vs, am),
+                   **timed(lambda: wm.window_msa_kernel(q, k, v, bias, mask),
+                           lambda: wm.window_msa_plain(q, k, v, bias, mask),
+                           lambda: F.scaled_dot_product_attention(
+                               qs, ks, vs, attn_mask=am, scale=1.0)),
+                   **k3_bound(q, mask),
+                   "fused_ms": time_ms(lambda: wm.fused_window_attention(
+                       x, *w, mask, H)),
+                   "fused_plain_ms": time_ms(
+                       lambda: wm.fused_window_attention_plain(x, *w, mask,
+                                                               H)),
+                   "fence": {**timed(lambda: wm.layout_fence(xf),
+                                     lambda: wm.layout_fence_plain(xf),
+                                     lambda: copy_to.copy_(xf)),
+                             **fence_bound(xf)}}
+        rec["backward_ms"] = bwd_time_ms(y, leaves, ct)
+        rec["backward_plain_ms"] = bwd_time_ms(y_plain, leaves, ct)
+        log("[window] train " + json.dumps(rec))
+        train_recs.append(rec)
+    log(f"[window] phase 9 took {time.perf_counter() - t0:.1f} s")
+    return {"k3_launches": n_k3, "k4_launches": n_k4, "sites": sites,
+            "fused": fused, "train": train_recs}
+
+
+def window_kernel_entries(win, serve_n: dict, train_run: dict) -> list:
+    """The `kernels` entries of K3 and K4 from phase 9's records, with the
+    launches counted in the serving forward (`serve_n`) and the first
+    main.main train run (`train_run`)."""
+
+    def total(recs, field):
+        return sum(r[field] for r in recs)
+
+    def by(recs):
+        return ("operations" if total(recs, "ops_ms") >= total(recs, "bytes_ms")
+                else "bytes")
+
+    def device_totals(recs, prefix=""):
+        return {f"{prefix}device_ms": total(recs, "kernel_device_ms"),
+                f"{prefix}plain_device_ms": total(recs, "plain_device_ms"),
+                f"{prefix}library_device_ms": total(recs,
+                                                    "library_device_ms")}
+
+    sites, train = win["sites"], win["train"]
+    fences = [r["fence"] for r in win["fused"]]
+    train_fences = [r["fence"] for r in train]
+    return [
+        {"name": "window_msa", "route": "cuda",
+         "source": "gwdepth_tpu_torch/csrc/window_msa.cu",
+         "replaces": "gwdepth_tpu/ops/pallas_kernels.py:232",
+         "launches": win["k3_launches"],
+         "model_path_launches": serve_n["k3"],
+         "train_launches": train_run["k3"],
+         "max_abs_err": max(r["max_err"] for r in sites),
+         "model_max_abs_err": max(r["model_max_err"] for r in sites),
+         "fused_max_scaled_err": max(
+             [r["max_scaled_err"] for r in win["fused"]]
+             + [r["fwd_max_scaled_err"] for r in train]),
+         "ms": total(sites, "kernel_ms"), "plain_ms": total(sites, "plain_ms"),
+         "bound_ms": total(sites, "bound_ms"), "bound_by": by(sites),
+         "library_ms": total(sites, "library_ms"),
+         **device_totals(sites),
+         "library_backends": sorted({r["library_backend"] for r in sites}),
+         "fused_ms": total(win["fused"], "fused_ms"),
+         "fused_plain_ms": total(win["fused"], "fused_plain_ms"),
+         "train_ms": total(train, "kernel_ms"),
+         "train_plain_ms": total(train, "plain_ms"),
+         "train_bound_ms": total(train, "bound_ms"),
+         "train_bound_by": by(train),
+         "train_library_ms": total(train, "library_ms"),
+         **device_totals(train, "train_"),
+         "train_fused_ms": total(train, "fused_ms"),
+         "train_fused_plain_ms": total(train, "fused_plain_ms"),
+         # no backward kernel: the backward is plain PyTorch
+         "train_backward_max_scaled_err": max(r["bwd_max_scaled_err"]
+                                              for r in train),
+         "train_backward_ms": total(train, "backward_ms"),
+         "train_backward_plain_ms": total(train, "backward_plain_ms")},
+        {"name": "layout_fence", "route": "cuda",
+         "source": "gwdepth_tpu_torch/csrc/layout_fence.cu",
+         "replaces": "gwdepth_tpu/ops/pallas_kernels.py:264",
+         "launches": win["k4_launches"],
+         "model_path_launches": serve_n["k4"],
+         "train_launches": train_run["k4"],
+         "max_abs_err": max(f["max_err"] for f in fences),
+         "ms": total(fences, "kernel_ms"), "plain_ms": total(fences, "plain_ms"),
+         "bound_ms": total(fences, "bound_ms"), "bound_by": by(fences),
+         "library_ms": total(fences, "library_ms"),
+         **device_totals(fences),
+         "train_ms": total(train_fences, "kernel_ms"),
+         "train_plain_ms": total(train_fences, "plain_ms"),
+         "train_bound_ms": total(train_fences, "bound_ms"),
+         "train_bound_by": by(train_fences),
+         "train_library_ms": total(train_fences, "library_ms"),
+         **device_totals(train_fences, "train_")},
+    ]
+
+
 def main(argv=None) -> None:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
@@ -805,12 +1179,13 @@ def main(argv=None) -> None:
     with torch.no_grad():
         k1 = phase_k1(rng, dev)
         k2 = phase_k2(rng, dev)
-    k1_n, k2_n, k2_links = phase_model(card)
+    k1_n, k2_n, k2_links, k34_n = phase_model(card)
     phase_serve()
     k2_train, k1_train = phase_backward(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
     phase_train_card_vs_cpu()
+    win = phase_window_attention(rng)
 
     missing = [key for key in k2_links if key not in k2]
     assert not missing, f"main-path K2 links not timed: {missing}"
@@ -888,6 +1263,7 @@ def main(argv=None) -> None:
          "library_ms": train_bwd("library_ms"),
          "backward_ms": train_bwd("backward_ms"),
          "plain_convs_ms": train_bwd("plain_convs_ms")},
+        *window_kernel_entries(win, k34_n, run),
     ]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
@@ -901,7 +1277,17 @@ def main(argv=None) -> None:
         "NCHW with cuDNN autotuned; its max_abs_err is scaled by max(1, "
         "the call's largest reference gradient). "
         f"train step median {train['step_ms']:.3f} ms, host matcher "
-        f"{train['matcher_ms']:.3f} ms")
+        f"{train['matcher_ms']:.3f} ms. K3 and K4: launches over phase 9's "
+        "driven calls, model_path_launches in the serving forward and "
+        "train_launches in that train run (no model path calls them); "
+        "ms, plain_ms, "
+        "bound_ms, library_ms summed over its 9 serving window_msa sites "
+        "(K4: the fence of its 5 serving fused calls), train_* over the 5 "
+        "fused train sites (bs2 704x1024); *_ms by CUDA events around each "
+        "call (the host's launch path included), *device_ms per call of "
+        "10 calls captured in a CUDA graph; K3's library is "
+        "F.scaled_dot_product_attention with a float attn_mask, K4's "
+        "Tensor.copy_.")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -25,7 +25,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
-KERNELS = ("ref_attn_diffusion", "conv3x3_ln_act")
+KERNELS = ("ref_attn_diffusion", "conv3x3_ln_act", "window_msa",
+           "layout_fence")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

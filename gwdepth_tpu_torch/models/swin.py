@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
 from gwdepth_tpu_torch.ops.ref_attn_diffusion import ref_attn_diffusion
+from gwdepth_tpu_torch.ops.window_msa import window_msa_kernel
 from gwdepth_tpu_torch.ops.window import (shifted_window_attn_mask,
                                           window_partition, window_reverse)
 
@@ -74,10 +75,18 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.reshape(*lead, N, heads, C // heads).movedim(-2, -3)
 
 
-def window_msa(q, k, v, bias: torch.Tensor,
-               mask: Optional[torch.Tensor]) -> torch.Tensor:
+def window_msa(q, k, v, bias: torch.Tensor, mask: Optional[torch.Tensor],
+               use_pallas: bool = False) -> torch.Tensor:
     """q/k/v (B, nW, nH, N, hd); bias (nH, N, N); mask (nW, N, N) additive
-    or None. Returns (B, nW, N, nH*hd). Softmax in float32."""
+    or None. Returns (B, nW, N, nH*hd). Softmax in float32.
+
+    `use_pallas` (the JAX package's name for the flag) routes through
+    kernel K3, `ops/window_msa.py:window_msa_kernel`: a CUDA tensor
+    launches the CUDA kernel (and raises for N > 64 or hd > 32), a CPU
+    tensor takes its plain version; the result is float32. No module
+    passes it, as in the JAX package."""
+    if use_pallas:
+        return window_msa_kernel(q, k, v, bias, mask)
     logits = torch.einsum("bwhnd,bwhmd->bwhnm", q, k).float()
     logits = logits + bias[None, None]
     if mask is not None:

@@ -1,0 +1,291 @@
+"""K3 and K4: windowed multi-head attention and the layout fence.
+
+The counterpart of the K3/K4 half of `gwdepth_tpu/ops/pallas_kernels.py`
+(K1's half is `ref_attn_diffusion.py`):
+
+- `window_msa_kernel(q, k, v, bias, mask)`, the counterpart of
+  `window_msa_pallas`: for every window and head,
+  softmax(q kᵀ + bias[h] (+ mask[w mod nW])) v with float32 logits and a
+  max-subtracted softmax. q/k/v (B, nW, H, N, hd), q pre-scaled; bias
+  (H, N, N); mask (nW, N, N) additive or None. Returns (B, nW, N, H*hd)
+  float32. A CUDA tensor launches `csrc/window_msa.cu` (it replaces the
+  Pallas kernel `_window_msa_pallas`); a CPU tensor takes
+  `window_msa_plain`.
+- `layout_fence(x)`, the counterpart of `layout_fence`: an identity copy;
+  `ndim < 2` returns x itself, as there. A CUDA tensor launches
+  `csrc/layout_fence.cu`; a CPU tensor takes `x.clone()`. PyTorch has no
+  layout assignment for the fence to stop, so it only computes what the
+  TPU kernel computes.
+- `fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask,
+  num_heads)`, the counterpart of `fused_window_attention`: the fence on
+  x, the qkv projection, K3 (with q scaled by hd^-0.5 inside the kernel,
+  which reads q, k and v in place from the qkv product), the output
+  projection. The weights are in `nn.Linear` layout, wqkv (3C, C) and
+  wproj (C, C), so a port module's `attn.qkv.weight` goes straight in;
+  the JAX entry takes the flax kernels (C, 3C) and (C, C). The two
+  projections are `F.linear`, as the JAX package leaves them to XLA.
+
+Nothing falls back: a CUDA tensor the kernel cannot take (N > 64,
+hd > 32) raises.
+
+Gradients: `window_msa_kernel`, `fused_window_attention` and
+`layout_fence` are `torch.autograd.Function`s. The two attention
+backwards recompute from the saved inputs and differentiate the plain
+formulation (`window_msa_plain`, einsum and softmax; for the fused entry
+`fused_window_attention_plain`, with the two linears), as the JAX
+package's `_fwa_bwd` differentiates `_attention_xla_reference`
+(`gwdepth_tpu/ops/pallas_kernels.py:394-404`). The JAX package has no
+backward kernel for K3, so the port has none either. The fence passes its
+gradient through.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+MAX_N = 64
+MAX_HD = 32
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def window_msa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     bias: torch.Tensor,
+                     mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's arithmetic: float32 logits,
+    + bias, + mask[w mod nW], max-subtracted exp, divided by the sum, then
+    the weighted sum over v."""
+    q, k, v = q.float(), k.float(), v.float()
+    s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k) + bias.float()[None, None]
+    if mask is not None:
+        s = s + mask.float()[None, :, None]
+    e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    attn = e / e.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bwhnm,bwhmd->bwhnd", attn, v)
+    B, nW, H, N, hd = out.shape
+    return out.movedim(2, 3).reshape(B, nW, N, H * hd)
+
+
+def layout_fence_plain(x: torch.Tensor) -> torch.Tensor:
+    return x.clone()
+
+
+def _split_qkv(qkv: torch.Tensor, B: int, H: int):
+    """(W, N, 3C) -> q, k, v views (B, nW, H, N, hd) into it."""
+    W, N, C3 = qkv.shape
+    C = C3 // 3
+    return [t.reshape(B, W // B, N, H, C // H).transpose(2, 3)
+            for t in qkv.split(C, dim=-1)]
+
+
+def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
+                                 num_heads: int) -> torch.Tensor:
+    """The fused entry with the plain versions of K3 and K4 (the JAX
+    package's `_attention_xla_reference`, the fence's copy included). Its
+    autograd is the fused entry's backward."""
+    B, nW, N, C = x.shape
+    xf = layout_fence_plain(x.reshape(B * nW, N, C).float())
+    q, k, v = _split_qkv(F.linear(xf, wqkv.float(), bqkv.float()), B,
+                         num_heads)
+    out = window_msa_plain(q * (C // num_heads) ** -0.5, k, v, bias, mask)
+    return F.linear(out, wproj.float(), bproj.float())
+
+
+# ---------------------------------------------------------------------------
+# kernel launches
+# ---------------------------------------------------------------------------
+
+def _lib(name: str, argtypes):
+    from gwdepth_tpu_torch import _build
+
+    lib = _build.load(name)
+    fn = getattr(lib, f"gw_{name}")
+    if fn.argtypes is None:
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check_shapes(B, nW, H, N, hd, bias, mask) -> None:
+    """Raise ValueError unless the K3 kernel takes these sizes."""
+    if not (1 <= N <= MAX_N and 1 <= hd <= MAX_HD):
+        raise ValueError(f"window_msa kernel takes N <= {MAX_N} and "
+                         f"1 <= hd <= {MAX_HD}, got N={N}, hd={hd}")
+    if tuple(bias.shape) != (H, N, N):
+        raise ValueError(f"bias {tuple(bias.shape)}, expected {(H, N, N)}")
+    if mask is not None and tuple(mask.shape) != (nW, N, N):
+        raise ValueError(f"mask {tuple(mask.shape)}, expected {(nW, N, N)}")
+
+
+def _launch_msa(q, k, v, bias, mask, q_scale: float) -> torch.Tensor:
+    """Launch K3 on (B, nW, H, N, hd) views with a dense last axis (other
+    views are made contiguous) and return (B, nW, N, H*hd) float32."""
+    from gwdepth_tpu_torch import _build
+
+    if q.dim() != 5 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"window_msa kernel: q/k/v must be (B, nW, H, N, hd)"
+                         f" of one shape, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    _check_shapes(*q.shape, bias, mask)
+    for name, t in (("q", q), ("k", k), ("v", v), ("bias", bias),
+                    ("mask", mask)):
+        if t is not None and (not t.is_cuda or t.device != q.device):
+            raise ValueError(f"window_msa kernel: {name} on {t.device}, "
+                             f"q on {q.device}")
+    B, nW, H, N, hd = q.shape
+    ops = []
+    for t in (q, k, v):
+        t = t.float()
+        ops.append(t if t.stride(-1) == 1 else t.contiguous())
+    strides = (ctypes.c_longlong * 12)(*[s for t in ops
+                                         for s in t.stride()[:4]])
+    bias32 = bias.float().contiguous()
+    mask32 = None if mask is None else mask.float().contiguous()
+    out = torch.empty((B, nW, N, H * hd), dtype=torch.float32,
+                      device=q.device)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    fn = _lib("window_msa", [P, P, P, P, P, P, P, I, I, I, I, I,
+                             ctypes.c_float, P])
+    err = fn(ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
+             ctypes.cast(strides, P), bias32.data_ptr(),
+             None if mask32 is None else mask32.data_ptr(), out.data_ptr(),
+             B, nW, H, N, hd, float(q_scale),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, "window_msa launch")
+    window_msa_kernel.launches += 1
+    return out
+
+
+def _launch_fence(x: torch.Tensor) -> torch.Tensor:
+    from gwdepth_tpu_torch import _build
+
+    if not x.is_cuda:
+        raise ValueError(f"layout_fence: no kernel for device {x.device}")
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    P = ctypes.c_void_p
+    fn = _lib("layout_fence", [P, P, ctypes.c_longlong, P])
+    err = fn(x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "layout_fence launch")
+    layout_fence.launches += 1
+    return out
+
+
+def _fence(x: torch.Tensor) -> torch.Tensor:
+    return layout_fence_plain(x) if x.device.type == "cpu" \
+        else _launch_fence(x)
+
+
+# ---------------------------------------------------------------------------
+# autograd Functions and entry points
+# ---------------------------------------------------------------------------
+
+def _grads_through(fn, inputs, needs, ct):
+    """Gradients of fn(*inputs) for the inputs in `needs`, by autograd
+    through fn on detached copies; None for the others."""
+    with torch.enable_grad():
+        leaves = [t if t is None else t.detach().requires_grad_(bool(n))
+                  for t, n in zip(inputs, needs)]
+        want = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(fn(*leaves), want, ct))
+    return tuple(next(grads) if t is not None and t.requires_grad else None
+                 for t in leaves)
+
+
+class _WindowMsa(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, mask):
+        ctx.save_for_backward(q, k, v, bias, mask)
+        if q.device.type == "cpu":
+            return window_msa_plain(q, k, v, bias, mask)
+        return _launch_msa(q, k, v, bias, mask, 1.0)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return _grads_through(window_msa_plain, ctx.saved_tensors,
+                              ctx.needs_input_grad, ct)
+
+
+def window_msa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      bias: torch.Tensor,
+                      mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """q/k/v (B, nW, H, N, hd) with q pre-scaled, bias (H, N, N), mask
+    (nW, N, N) or None -> (B, nW, N, H*hd) float32, differentiable. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    return _WindowMsa.apply(q, k, v, bias, mask)
+
+
+window_msa_kernel.launches = 0
+
+
+class _LayoutFence(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return _fence(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct
+
+
+def layout_fence(x: torch.Tensor) -> torch.Tensor:
+    """Identity copy of x (x itself when x.dim() < 2). CPU tensors are
+    cloned; CUDA tensors launch the copy kernel."""
+    if x.dim() < 2:
+        return x
+    return _LayoutFence.apply(x)
+
+
+layout_fence.launches = 0
+
+
+class _FusedWindowAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, mask)
+        ctx.num_heads = num_heads
+        if x.device.type == "cpu":
+            y = fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj,
+                                             bias, mask, num_heads)
+            return y.to(x.dtype)
+        B, nW, N, C = x.shape
+        _check_shapes(B, nW, num_heads, N, C // num_heads, bias, mask)
+        xf = _fence(x.reshape(B * nW, N, C).float())
+        q, k, v = _split_qkv(F.linear(xf, wqkv.float(), bqkv.float()), B,
+                             num_heads)
+        out = _launch_msa(q, k, v, bias, mask, (C // num_heads) ** -0.5)
+        return F.linear(out, wproj.float(), bproj.float()).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, ct):
+        def ref(*args):
+            return fused_window_attention_plain(*args, ctx.num_heads)
+
+        grads = _grads_through(ref, ctx.saved_tensors,
+                               ctx.needs_input_grad[:7], ct.float())
+        return (*grads, None)
+
+
+def fused_window_attention(x: torch.Tensor, wqkv: torch.Tensor,
+                           bqkv: torch.Tensor, wproj: torch.Tensor,
+                           bproj: torch.Tensor, bias: torch.Tensor,
+                           mask: Optional[torch.Tensor],
+                           num_heads: int) -> torch.Tensor:
+    """x (B, nW, N, C); wqkv (3C, C), bqkv (3C,), wproj (C, C), bproj (C,)
+    in `nn.Linear` layout; bias (H, N, N); mask (nW, N, N) or None.
+    Returns (B, nW, N, C) in x's dtype, differentiable. On a CUDA tensor
+    it launches K4 once and K3 once."""
+    return _FusedWindowAttention.apply(x, wqkv, bqkv, wproj, bproj, bias,
+                                       mask, num_heads)
+
+
+def reset_counts() -> None:
+    window_msa_kernel.launches = 0
+    layout_fence.launches = 0

@@ -17,6 +17,7 @@ import torch
 
 from gwdepth_tpu_torch.ops import fused_conv as port_fc
 from gwdepth_tpu_torch.ops import ref_attn_diffusion as port_k1
+from gwdepth_tpu_torch.ops import window_msa as port_wm
 
 TOL = 1e-4
 
@@ -113,9 +114,9 @@ def test_k2_kernel_rejects_wide_output(dev):
 # float noise of the size of the others.
 # ---------------------------------------------------------------------------
 
-def _grads(fn, inputs, ct):
+def _grads(fn, inputs, ct, **kw):
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
-    y = fn(*leaves)
+    y = fn(*leaves, **kw)
     return y, torch.autograd.grad(y, leaves, ct)
 
 
@@ -181,3 +182,148 @@ def test_cuda_outputs_carry_grad_fn_only_when_inputs_require_grad(dev):
     assert port_k1.ref_attn_diffusion(a, kw, kb).grad_fn is not None
     with torch.no_grad():
         assert port_k1.ref_attn_diffusion(a, kw, kb).grad_fn is None
+
+
+# ---------------------------------------------------------------------------
+# K3 (windowed MSA) and K4 (layout fence)
+# ---------------------------------------------------------------------------
+
+def _msa_inputs(seed, shape, dev, with_mask):
+    B, nW, H, N, hd = shape
+    rng = np.random.default_rng(seed)
+    q, k, v = (_t(rng.normal(size=shape), dev) for _ in range(3))
+    bias = _t(rng.normal(size=(H, N, N)), dev)
+    mask = (_t(np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0), dev)
+            if with_mask else None)
+    return q, k, v, bias, mask
+
+
+@pytest.mark.parametrize("shape,with_mask", [
+    ((1, 5, 3, 9, 1), True), ((2, 7, 2, 6, 2), False),
+    ((2, 7, 2, 6, 5), True), ((3, 4, 4, 9, 32), True),
+    ((1, 20, 16, 49, 32), True), ((1, 1036, 16, 49, 4), False),
+    ((2, 247, 16, 49, 8), True), ((1, 3, 2, 64, 3), True),
+    ((2, 5, 1, 1, 7), False)])
+def test_k3_kernel_matches_plain(dev, shape, with_mask):
+    q, k, v, bias, mask = _msa_inputs(9, shape, dev, with_mask)
+    port_wm.reset_counts()
+    got = port_wm.window_msa_kernel(q, k, v, bias, mask)
+    torch.cuda.synchronize()
+    assert port_wm.window_msa_kernel.launches == 1
+    B, nW, H, N, hd = shape
+    assert got.shape == (B, nW, N, H * hd) and got.dtype == torch.float32
+    want = port_wm.window_msa_plain(q, k, v, bias, mask)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+def test_k3_kernel_reads_strided_views_and_scales_q(dev):
+    """The model's head-split views and the fused entry's q scaling: q, k,
+    v as (B, nW, H, N, hd) views of one (B*nW, N, 3C) product."""
+    rng = np.random.default_rng(10)
+    B, nW, N, H, hd = 2, 6, 49, 4, 8
+    C = H * hd
+    qkv = _t(rng.normal(size=(B * nW, N, 3 * C)), dev)
+    q, k, v = port_wm._split_qkv(qkv, B, H)
+    assert not q.is_contiguous()
+    bias = _t(rng.normal(size=(H, N, N)), dev)
+    got = port_wm._launch_msa(q, k, v, bias, None, hd ** -0.5)
+    want = port_wm.window_msa_plain(q * hd ** -0.5, k, v, bias, None)
+    torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("shape", [(1, 2, 2, 65, 4), (1, 2, 2, 9, 33)])
+def test_k3_kernel_refuses_what_it_cannot_take(dev, shape):
+    q, k, v, bias, _ = _msa_inputs(11, shape, dev, False)
+    B, nW, H, N, hd = shape
+    C = H * hd
+    x = torch.zeros(B, nW, N, C, device=dev)
+    w = [torch.zeros(s, device=dev)
+         for s in ((3 * C, C), (3 * C,), (C, C), (C,))]
+    port_wm.reset_counts()
+    with pytest.raises(ValueError, match="N <= 64"):
+        port_wm.window_msa_kernel(q, k, v, bias, None)
+    with pytest.raises(ValueError, match="N <= 64"):
+        port_wm.fused_window_attention(x, *w, bias, None, H)
+    # refused before any launch, the fence's included
+    assert port_wm.window_msa_kernel.launches == 0
+    assert port_wm.layout_fence.launches == 0
+
+
+def test_k3_function_grads_match_plain_autograd(dev):
+    q, k, v, bias, mask = _msa_inputs(12, (2, 7, 4, 49, 8), dev, True)
+    ct = torch.randn(2, 7, 49, 32, device=dev,
+                     generator=torch.Generator(dev).manual_seed(2))
+    y, got = _grads(port_wm.window_msa_kernel, (q, k, v, bias), ct,
+                    mask=mask)
+    assert y.grad_fn is not None
+    _, want = _grads(port_wm.window_msa_plain, (q, k, v, bias), ct,
+                     mask=mask)
+    _close_scaled(got, want)
+
+
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_fused_window_attention_grads_match_plain_autograd(dev, with_mask):
+    rng = np.random.default_rng(13)
+    B, nW, N, C, H = 2, 70, 49, 64, 16
+    x = _t(rng.normal(size=(B, nW, N, C)), dev)
+    w = [_t(0.1 * rng.normal(size=s), dev)
+         for s in ((3 * C, C), (3 * C,), (C, C), (C,))]
+    bias = _t(rng.normal(size=(H, N, N)), dev)
+    mask = (_t(np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0), dev)
+            if with_mask else None)
+    ct = torch.randn(B, nW, N, C, device=dev,
+                     generator=torch.Generator(dev).manual_seed(3))
+    port_wm.reset_counts()
+
+    def call(fn):
+        return lambda *t: fn(*t, mask, H)
+
+    y, got = _grads(call(port_wm.fused_window_attention), (x, *w, bias), ct)
+    torch.cuda.synchronize()
+    assert y.grad_fn is not None
+    assert port_wm.window_msa_kernel.launches == 1
+    assert port_wm.layout_fence.launches == 1
+    y_plain, want = _grads(call(port_wm.fused_window_attention_plain),
+                           (x, *w, bias), ct)
+    torch.testing.assert_close(y, y_plain, atol=TOL, rtol=0)
+    _close_scaled(got, want)
+
+
+def test_k3_k4_outputs_carry_grad_fn_only_when_inputs_require_grad(dev):
+    q, k, v, bias, mask = _msa_inputs(14, (1, 4, 2, 9, 4), dev, True)
+    assert port_wm.window_msa_kernel(q, k, v, bias, mask).grad_fn is None
+    bias.requires_grad_()
+    y = port_wm.window_msa_kernel(q, k, v, bias, mask)
+    assert y.grad_fn is not None and y.is_cuda
+    with torch.no_grad():
+        assert port_wm.window_msa_kernel(q, k, v, bias, mask).grad_fn is None
+    x = _t(np.ones((4, 9, 8)), dev)
+    assert port_wm.layout_fence(x).grad_fn is None
+    assert port_wm.layout_fence(x.requires_grad_()).grad_fn is not None
+    w = [torch.zeros(s, device=dev) for s in ((24, 8), (24,), (8, 8), (8,))]
+    x = _t(np.ones((1, 4, 9, 8)), dev)
+    b = bias.detach()
+    assert port_wm.fused_window_attention(x, *w, b, mask, 2).grad_fn is None
+    w[2].requires_grad_()
+    assert port_wm.fused_window_attention(x, *w, b, mask, 2).grad_fn \
+        is not None
+
+
+@pytest.mark.parametrize("shape,dtype", [
+    ((16, 9, 5), torch.float32), ((7, 4), torch.float32),
+    ((1036, 49, 64), torch.float32), ((3, 333), torch.uint8),
+    ((5, 7), torch.float16)])
+def test_k4_fence_is_identity_and_counts(dev, shape, dtype):
+    x = torch.randn(shape, device=dev).mul(50).to(dtype)
+    port_wm.reset_counts()
+    got = port_wm.layout_fence(x)
+    torch.cuda.synchronize()
+    assert port_wm.layout_fence.launches == 1
+    assert torch.equal(got, x) and got.data_ptr() != x.data_ptr()
+    # an offset view: not 16-byte aligned, so the byte loop copies it
+    view = x.reshape(-1)[1:].reshape(1, -1)
+    assert torch.equal(port_wm.layout_fence(view), view)
+    assert port_wm.layout_fence.launches == 2
+    one = torch.arange(5.0, device=dev)
+    assert port_wm.layout_fence(one) is one
+    assert port_wm.layout_fence.launches == 2

@@ -54,7 +54,8 @@ def test_port_files_found():
     for rel in ("main.py", "engine.py", "ops/lap.py", "losses/criterion.py",
                 "parallel/train_state.py", "parallel/train_step.py",
                 "data/batch.py", "data/dataset.py", "tools/synthetic.py",
-                "utils/logging.py", "utils/checkpoint.py"):
+                "utils/logging.py", "utils/checkpoint.py",
+                "ops/window_msa.py"):
         assert f"gwdepth_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(PORT_FILES) >= 35
 
@@ -119,7 +120,7 @@ print('FRESH-OK')
 
 
 def test_port_runs_without_jax_triton_or_cuda():
-    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
                PYTHONPATH=str(ROOT))
     code = f"BLOCKED = {FORBIDDEN + ('triton',)!r}\n" + _FRESH
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

@@ -28,6 +28,19 @@ from gwdepth_tpu_torch.ops import fused_conv as port_fc
 from gwdepth_tpu_torch.ops import ref_attn_diffusion as port_k1
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run this module's torch ops on one intra-op thread, and restore the
+    count after it: pytest-xdist runs several test processes on the
+    machine's cores beside XLA's thread pools, where torch's pool of one
+    spinning thread per core slowed every process down. Yields the count
+    it found."""
+    found = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield found
+    torch.set_num_threads(found)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 

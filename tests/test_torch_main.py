@@ -21,6 +21,8 @@ from gwdepth_tpu_torch import main as pmain
 from gwdepth_tpu_torch.engine import format_eval_line
 from gwdepth_tpu_torch.tools.synthetic import generate_dataset
 
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+
 TRAIN_KEYS = ["cardinality_error", "loss", "loss_ce", "loss_ce_0",
               "loss_depth_1", "loss_depth_1_16", "loss_depth_1_4",
               "loss_depth_1_8", "loss_line", "loss_line_0", "loss_seg"]

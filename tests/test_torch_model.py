@@ -35,6 +35,8 @@ from gwdepth_tpu_torch.config import tiny_test_config
 from gwdepth_tpu_torch.convert import jax_params_to_state_dict
 from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD, init_weights
 
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+
 F32_TOL = 1e-4
 BF16_TAP_TOL = 5e-2
 

@@ -37,6 +37,8 @@ from gwdepth_tpu_torch.models.dense_encoder import (DenseEncoder,
 from gwdepth_tpu_torch.models.glassrgbd import init_weights
 from gwdepth_tpu_torch.ops import grid_sample, interpolate, posemb, window
 
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x)))

@@ -54,6 +54,8 @@ from gwdepth_tpu_torch.parallel import (create_train_state, make_train_step,
                                         param_group_label)
 from gwdepth_tpu_torch.parallel import train_step as pstep
 
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+
 
 def _t(x, dtype=np.float32):
     return torch.from_numpy(np.ascontiguousarray(x, dtype))
@@ -363,11 +365,22 @@ def _jax_adam_mu(jstate):
 
 
 @pytest.fixture(scope="module")
-def trajectory():
+def trajectory(one_torch_thread):
     """N steps of the JAX `make_train_step` and of the port's, from the
     same weights on the same batches. After step 1 each optimizer's first
     moment is (1 - beta1) x the clipped first gradient, which gives the
-    first-step gradients of both without another compile."""
+    first-step gradients of both without another compile. Torch runs on
+    the process's own thread count here: the parameter bound's 1e-3
+    share was set against that summation order, and one thread's order
+    moves 0.44 % of the elements past 1e-2 * lr."""
+    torch.set_num_threads(one_torch_thread)
+    try:
+        return _trajectory()
+    finally:
+        torch.set_num_threads(1)
+
+
+def _trajectory():
     cfg = tiny_test_config(matcher="scipy")
     jcfg = jax_tiny(matcher="scipy", use_pallas=False)
     sd = {k: v.numpy()

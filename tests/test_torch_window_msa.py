@@ -1,0 +1,267 @@
+"""Kernels K3 (windowed MSA) and K4 (layout fence) of the port against the
+JAX package, on the CPU.
+
+On a CPU tensor `window_msa_kernel` runs its plain version and
+`fused_window_attention` runs the fence as a copy and K3's plain version;
+their autograd Functions run the analytic backward (autograd through the
+einsum/softmax formulation). The JAX side runs `window_msa_pallas` in
+interpret mode, or the XLA `window_msa` where interpret mode is slow, and
+`jax.vjp` of `_attention_xla_reference` for the gradients. Inputs come
+from numpy seeds.
+
+Tolerance 1e-5 (scaled by max(1, |reference|) where the reference is
+larger): float32 against float32, reassociation only; gradients at 1e-5
+of the largest reference gradient of the call.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gwdepth_tpu.convert.full_model import glassrgbd_torch_to_flax
+from gwdepth_tpu.models import swin as jswin
+from gwdepth_tpu.ops.pallas_kernels import _attention_xla_reference
+from gwdepth_tpu.ops.pallas_kernels import fused_window_attention as jax_fused
+from gwdepth_tpu.ops.pallas_kernels import layout_fence as jax_fence
+from gwdepth_tpu.ops.pallas_kernels import window_msa_pallas
+
+from gwdepth_tpu_torch.config import tiny_test_config
+from gwdepth_tpu_torch.convert import jax_params_to_state_dict
+from gwdepth_tpu_torch.models import swin
+from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD, init_weights
+from gwdepth_tpu_torch.ops import window_msa as wm
+
+from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
+
+TOL = 1e-5
+
+
+def _t(x):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
+
+
+def _close(got, want, tol=TOL):
+    want = np.asarray(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(np.asarray(got.detach()), want, rtol=0,
+                               atol=tol * scale)
+
+
+def _msa_inputs(B, nW, H, N, hd, with_mask, seed):
+    rng = np.random.default_rng(seed)
+    q, k, v = (rng.standard_normal((B, nW, H, N, hd)).astype(np.float32)
+               for _ in range(3))
+    bias = rng.standard_normal((H, N, N)).astype(np.float32)
+    mask = (np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0)
+            .astype(np.float32) if with_mask else None)
+    return q, k, v, bias, mask
+
+
+def _jnp(*xs):
+    return [None if x is None else jnp.asarray(x) for x in xs]
+
+
+def _pt(*xs):
+    return [None if x is None else _t(x) for x in xs]
+
+
+@pytest.mark.parametrize("B,nW,H,N,hd,with_mask", [(1, 5, 3, 9, 4, True),
+                                                   (2, 7, 2, 6, 5, False)])
+def test_window_msa_plain_matches_pallas_interpret(B, nW, H, N, hd,
+                                                   with_mask):
+    args = _msa_inputs(B, nW, H, N, hd, with_mask, B * 100 + nW)
+    want = window_msa_pallas(*_jnp(*args), interpret=True)
+    _close(wm.window_msa_plain(*_pt(*args)), want)
+    _close(wm.window_msa_kernel(*_pt(*args)), want)
+
+
+def test_window_msa_plain_matches_xla_over_130_windows():
+    """Past the TPU kernel's 128-window lane chunk; held against the XLA
+    formulation only (interpret mode is slow at this shape)."""
+    args = _msa_inputs(1, 130, 4, 49, 4, True, 130)
+    _close(wm.window_msa_plain(*_pt(*args)),
+           jax.jit(jswin.window_msa)(*_jnp(*args)))
+
+
+def test_window_msa_use_pallas_flag_and_grads_match_jax():
+    """`swin.window_msa(use_pallas=True)` routes to K3 and equals the
+    einsum/softmax path; K3's Function gives `jax.vjp`'s gradients of the
+    XLA `window_msa` for q, k, v, bias and mask."""
+    args = _msa_inputs(2, 3, 3, 9, 4, True, 7)
+    ct = np.random.default_rng(8).standard_normal((2, 3, 9, 12))
+    leaves = [t.requires_grad_() for t in _pt(*args)]
+    got = swin.window_msa(*leaves, use_pallas=True)
+    assert got.grad_fn is not None and got.dtype == torch.float32
+    _close(got, swin.window_msa(*_pt(*args)))
+    grads = torch.autograd.grad(got, leaves, _t(ct))
+
+    @jax.jit
+    def ref_vjp(ct, *a):
+        y, vjp = jax.vjp(jswin.window_msa, *a)
+        return y, vjp(ct)
+
+    want_y, want = ref_vjp(jnp.asarray(ct, jnp.float32), *_jnp(*args))
+    _close(got, want_y)
+    scale = max(1.0, max(float(np.abs(np.asarray(w)).max()) for w in want))
+    for name, g, w in zip(("q", "k", "v", "bias", "mask"), grads, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=TOL * scale, err_msg=name)
+    with torch.no_grad():
+        assert swin.window_msa(*leaves, use_pallas=True).grad_fn is None
+
+
+def test_fused_window_attention_matches_jax_and_vjp():
+    """Forward against the JAX fused entry (K3 in interpret mode); the
+    gradients of x, both weights and biases, and bias against `jax.vjp` of
+    `_attention_xla_reference`. The port takes the weights in nn.Linear
+    layout, the transposes of the flax kernels."""
+    rng = np.random.default_rng(3)
+    B, nW, N, C, H = 1, 6, 9, 32, 4
+    x = rng.standard_normal((B, nW, N, C))
+    wqkv = 0.2 * rng.standard_normal((C, 3 * C))
+    bqkv = 0.1 * rng.standard_normal(3 * C)
+    wproj = 0.2 * rng.standard_normal((C, C))
+    bproj = 0.1 * rng.standard_normal(C)
+    bias = rng.standard_normal((H, N, N))
+    mask = np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0)
+    ct = rng.standard_normal(x.shape)
+    jargs = [jnp.asarray(a, jnp.float32)
+             for a in (x, wqkv, bqkv, wproj, bproj, bias, mask)]
+    _close(wm.fused_window_attention(*_pt(x, wqkv.T, bqkv, wproj.T, bproj,
+                                          bias, mask), H),
+           jax_fused(*jargs, H))
+    leaves = [t.requires_grad_() for t in
+              _pt(x, wqkv.T, bqkv, wproj.T, bproj, bias)]
+    got = wm.fused_window_attention(*leaves, _t(mask), H)
+    grads = torch.autograd.grad(got, leaves, _t(ct))
+
+    @jax.jit
+    def ref_vjp(ct, *a):
+        y, vjp = jax.vjp(lambda *p: _attention_xla_reference(*p, a[-1], H),
+                         *a[:-1])
+        return y, vjp(ct)
+
+    want_y, want_g = ref_vjp(jnp.asarray(ct, jnp.float32), *jargs)
+    _close(got, want_y)
+    want_g = [np.asarray(g) for g in want_g]
+    want_g[1], want_g[3] = want_g[1].T, want_g[3].T     # flax -> nn.Linear
+    scale = max(1.0, max(float(np.abs(w).max()) for w in want_g))
+    for name, g, w in zip(("x", "wqkv", "bqkv", "wproj", "bproj", "bias"),
+                          grads, want_g):
+        np.testing.assert_allclose(g.numpy(), w, rtol=0, atol=TOL * scale,
+                                   err_msg=name)
+
+
+def test_fused_entry_on_loaded_window_class_attention():
+    """The fused entry with a port `WindowClassAttention`'s own weights,
+    loaded from the JAX module's params through `convert/from_jax.py`,
+    equals both modules' projection output."""
+    rng = np.random.default_rng(3)
+    B, nW, N, C, H, tC = 1, 6, 9, 32, 4, 8
+    x, dt, st = (rng.standard_normal((B, nW, N, c)).astype(np.float32)
+                 for c in (C, tC, tC))
+    mask = np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0
+                    ).astype(np.float32)
+    jm = jswin.WindowClassAttention(C, 3, H, tC)
+    jargs = _jnp(x, dt, st, mask)
+    shapes = jax.eval_shape(jm.init, jax.random.PRNGKey(0), *jargs)
+    params = jax.tree.map(
+        lambda s: 0.2 * rng.standard_normal(s.shape).astype(np.float32),
+        shapes["params"])
+    want = jax.jit(jm.apply)({"params": params}, *jargs)[0]
+    attn = swin.WindowClassAttention(C, 3, H, tC)
+    prefix = "dense_encoder.class_transformer1.blocks.0.attn."
+    template = {prefix + k: v for k, v in attn.state_dict().items()}
+    sd = jax_params_to_state_dict(
+        {"dense_encoder": {"class_transformer1": {"block0": {
+            "attn": jax.tree.map(np.asarray, params)}}}}, template)
+    attn.load_state_dict({k[len(prefix):]: v for k, v in sd.items()},
+                         strict=True)
+    with torch.no_grad():
+        _close(attn(*_pt(x, dt, st, mask))[0], want)
+    xt = _t(x).requires_grad_()
+    got = wm.fused_window_attention(xt, attn.qkv.weight, attn.qkv.bias,
+                                    attn.proj.weight, attn.proj.bias,
+                                    attn.rel_pos_bias(), _t(mask), H)
+    _close(got, want)
+    (got ** 2).sum().backward()
+    assert torch.isfinite(xt.grad).all()
+    assert torch.isfinite(attn.qkv.weight.grad).all()
+    assert torch.isfinite(attn.relative_position_bias_table.grad).all()
+
+
+@pytest.mark.parametrize("shape", [(16, 9, 5), (7, 4), (6,)])
+def test_layout_fence_is_identity(shape):
+    """Equal to the JAX fence in interpret mode; a copy, or x itself below
+    two dims as there; the gradient passes through."""
+    x = _t(np.random.default_rng(0).standard_normal(shape))
+    got = wm.layout_fence(x)
+    np.testing.assert_array_equal(
+        got.numpy(), np.asarray(jax_fence(jnp.asarray(x.numpy()),
+                                          interpret=True)))
+    if len(shape) < 2:
+        assert got is x
+        return
+    assert got.data_ptr() != x.data_ptr()
+    xg = x.clone().requires_grad_()
+    ct = torch.ones(shape)
+    (g,) = torch.autograd.grad(wm.layout_fence(xg), xg, ct)
+    assert torch.equal(g, ct)
+
+
+def test_slice_at_tiny_config_matches_model_and_jax(monkeypatch):
+    """Every window-attention site of one tiny-config forward of a port
+    GlassRGBD whose dense encoder (every window-attention site is there)
+    took its weights from a flax tree through the bridge: K3 on the
+    arguments of each `swin.window_msa` call, and the fused entry on the
+    input and mask of each `WindowClassAttention` with its weights, equal
+    the model's own results and the JAX package's XLA `window_msa` /
+    `_attention_xla_reference` on the same inputs."""
+    cfg = tiny_test_config()
+    model = init_weights(GlassRGBD(cfg), 0).eval()
+    sd = {k: v.numpy() for k, v in model.state_dict().items()}
+    part = {k: torch.zeros_like(v) for k, v in model.state_dict().items()
+            if k.startswith("dense_encoder.")}
+    res = model.load_state_dict(jax_params_to_state_dict(
+        glassrgbd_torch_to_flax(sd), part), strict=False)
+    assert not res.unexpected_keys and len(part) > 300
+    msa, cls = [], []
+    inner = swin.window_msa
+
+    def record(q, k, v, bias, mask, use_pallas=False):
+        out = inner(q, k, v, bias, mask, use_pallas)
+        msa.append((q, k, v, bias, mask, out))
+        return out
+
+    monkeypatch.setattr(swin, "window_msa", record)
+    for m in model.modules():
+        if isinstance(m, swin.WindowClassAttention):
+            m.register_forward_hook(
+                lambda mod, args, out: cls.append((mod, args[0], args[3],
+                                                   out[0])))
+    H, W = cfg.eval_hw
+    with torch.no_grad():
+        model(_t(np.random.default_rng(2).normal(size=(1, H, W, 3))))
+    assert {s[0].shape[-1] for s in msa} >= {1, 2, 4}    # head widths
+    assert any(s[4] is not None for s in msa)           # shifted windows
+    assert len(cls) == 3
+
+    def np_(*ts):
+        return [None if t is None else t.numpy() for t in ts]
+
+    jax_msa = jax.jit(jswin.window_msa)
+    jax_ref = jax.jit(_attention_xla_reference, static_argnums=7)
+    with torch.no_grad():
+        for q, k, v, bias, mask, out in msa:
+            got = wm.window_msa_kernel(q, k, v, bias, mask)
+            _close(got, out)
+            _close(got, jax_msa(*_jnp(*np_(q, k, v, bias, mask))))
+        for mod, x, mask, out in cls:
+            w = [mod.qkv.weight, mod.qkv.bias, mod.proj.weight,
+                 mod.proj.bias, mod.rel_pos_bias()]
+            got = wm.fused_window_attention(x, *w, mask, mod.num_heads)
+            _close(got, out)
+            jw = np_(x, w[0].T, w[1], w[2].T, w[3], w[4], mask)
+            _close(got, jax_ref(*_jnp(*jw), mod.num_heads))
