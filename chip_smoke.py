@@ -10,33 +10,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (one nvcc each, in parallel) and print ptxas' register and
               spill lines;
   3. kernels  hold each kernel against its plain PyTorch version on the
-              card at every main-path shape, with seeded inputs; time the
-              kernel, the plain version and a cuDNN/ATen composition of the
-              same function (conv2d + layer_norm + activation; K2's on
-              contiguous NCHW with cuDNN autotuned) with CUDA events,
-              medians of 30 runs after warm-up;
-  4. model    GlassRGBD(GWDepthConfig(dropout=0.0)) at 768x1024, batch 1,
-              weights from a seed (the repo holds no checkpoint): one
-              forward on the card with the launch counts zeroed just before
-              and read just after (K1 must launch 4 times, K2 25 times, K3
-              and K4 not at all),
+              card at every main-path shape, with seeded inputs (K2 in its
+              bf16-tap precision, `fast=True`); time the kernel, the plain
+              version and a cuDNN/ATen composition of the same function
+              (conv2d + layer_norm + activation; K2's in bf16 on
+              channels-last, and as before in float32 on contiguous NCHW,
+              cuDNN autotuned) with CUDA events, medians of 30 runs after
+              warm-up;
+  4. model    GlassRGBD(GWDepthConfig(dropout=0.0, use_pallas=True)) at
+              768x1024, batch 1, weights from a seed (the repo holds no
+              checkpoint): one forward on the card with the launch counts
+              zeroed just before and read just after (K1 must launch 4
+              times, K2 25 times, K3 and K4 not at all),
               output shapes and finiteness, the median forward time, a
               torch.profiler breakdown of one forward's device time (by
               kernel name, and the device's idle share), and the same
               forward on the CPU (the wrappers take the plain versions
-              there) compared with the card's;
+              there) compared with the card's; then the same weights with
+              use_pallas=False: no K1 or K2 launch, its median time, and
+              its distance from the kernels' forward;
   5. serve    three seeded synthetic images of different aspect ratios
-              through `gwdepth_tpu_torch.predict.main` on the card; every
-              output file must exist;
+              through `gwdepth_tpu_torch.predict.main` on the card (K1 4
+              and K2 25 launches per image); every output file must
+              exist;
   6. backward at every train-canvas shape of K2 (bs2, 88x128 and 176x256)
               and of K1: each kernel's forward output and its
               autograd.Function's gradients of every input against the
               plain version and autograd through it, and forward and
               backward times of the kernel, the plain version, the
-              cuDNN/ATen composition, and the bound;
+              cuDNN/ATen compositions, and the bound;
   7. train    8 train and 2 val synthetic scenes at 720x1280 through
-              `gwdepth_tpu_torch.main.main` on the card at the shipped
-              config (bs2 704x1024, dropout 0.1): one epoch of 4 steps,
+              `gwdepth_tpu_torch.main.main --use_pallas` on the card at the
+              shipped config (bs2 704x1024, dropout 0.1): one epoch of 4 steps,
               eval, checkpoint, then a `--resume` epoch; the launch counts
               of each run are zeroed just before and read just after and
               must equal the numbers the link list gives; finite losses,
@@ -45,7 +50,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               torch.profiler split of one step;
   8. train card vs CPU  one train step's losses and every gradient tensor
               at the shipped widths on a 128x192 canvas, dropout 0, the
-              same weights and batch on both devices;
+              same weights and batch on both devices: without the kernels
+              (float32 throughout; no K1 or K2 launch), and with them
+              (use_pallas; K1 4, K2 25 and 51 backward launches; held at
+              fixed bf16-tap limits that a control, the CPU's step on
+              images perturbed by 1e-7, must exceed threefold; the
+              depth points each run samples are reported); see
+              `phase_train_card_vs_cpu`;
   9. window attention  the entries that reach K3 (windowed MSA) and K4
               (layout fence), which no model path calls: one forward of
               the shipped model at 768x1024 bs1 and one at 704x1024 bs2
@@ -72,6 +83,7 @@ serving sites, `train_*` over its train sites), and the last line is
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import copy
 import json
@@ -95,13 +107,16 @@ from gwdepth_tpu_torch.ops import window_msa as wm
 from gwdepth_tpu_torch.ops.ref_attn_diffusion import (
     diffusion_torch, ref_attn_diffusion, ref_attn_diffusion_plain)
 
-# H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, HBM3
+# H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, bf16 on
+# the tensor cores, HBM3
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_S = 3.35e12
 
-# kernel vs plain version on the card, both float32 (the plain version's
-# matmuls without TF32): reassociation of sums of up to 2700 products
-# after a LayerNorm, far below this
+# kernel vs plain version on the card, both summing float32 products (the
+# plain version's matmuls without TF32; K2's products of bf16-rounded
+# operands, exact in float32, on both sides): reassociation of sums of up
+# to 2700 products after a LayerNorm, far below this
 K1_TOL = 1e-4
 K2_TOL = 1e-4
 # K3 against its plain version and the model's einsum/softmax path, all
@@ -156,10 +171,12 @@ def time_ms(fn, reps: int = 30, warmup: int = 3) -> float:
     return float(np.median([s.elapsed_time(e) for s, e in ev]))
 
 
-def bound_fields(flops: float, nbytes: float) -> dict:
-    """Least time on the card: the larger of the float32 arithmetic time
-    and the memory time, with both parts."""
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+def bound_fields(flops: float, nbytes: float,
+                 peak: float = PEAK_F32_FLOPS) -> dict:
+    """Least time on the card: the larger of the arithmetic time at `peak`
+    (float32 on the CUDA cores unless given) and the memory time, with
+    both parts."""
+    t_ops = flops / peak * 1e3
     t_mem = nbytes / PEAK_BYTES_S * 1e3
     return {"bound_ms": max(t_ops, t_mem),
             "bound_by": "operations" if t_ops >= t_mem else "bytes",
@@ -200,18 +217,45 @@ def library_ms(fn, reps: int = 30, warmup: int = 3) -> float:
         return time_ms(fn, reps=reps, warmup=warmup)
 
 
+def library_device_ms(fn) -> float:
+    """`graph_ms` of K2's cuDNN/ATen yardstick, autotuned in the warm-up
+    calls before the capture."""
+    with cudnn_autotuned():
+        return graph_ms(fn)
+
+
 def k2_library_inputs(x, w):
-    """x (B, H, W, Ci) and w (3, 3, Ci, Co) as cuDNN takes them: contiguous
-    (B, Ci, H, W) and (Co, Ci, 3, 3)."""
+    """x (B, H, W, Ci) and w (3, 3, Ci, Co) as cuDNN takes them in float32:
+    contiguous (B, Ci, H, W) and (Co, Ci, 3, 3)."""
     return (x.permute(0, 3, 1, 2).contiguous(),
             w.permute(3, 2, 0, 1).contiguous())
 
 
 def k2_library(x_nchw, w_oihw, g, b, r, act):
-    """cuDNN/ATen composition of K2's function (yardstick only), on the
-    inputs of `k2_library_inputs`; returns (B, H, W, Co)."""
+    """cuDNN/ATen composition of K2's function in float32 (the earlier
+    yardstick), on the inputs of `k2_library_inputs`; (B, H, W, Co)."""
     y = F.conv2d(x_nchw, w_oihw, padding=1).permute(0, 2, 3, 1)
     y = F.layer_norm(y, (w_oihw.shape[0],), g, b, eps=1e-5)
+    y = fused_conv.apply_act(y, act)
+    return y if r is None else y + r
+
+
+def k2_bf16_weight(w):
+    """w (3, 3, Ci, Co) float32 as cuDNN's bf16 channels-last conv takes
+    it: (Co, Ci, 3, 3) bf16 in channels-last memory."""
+    return w.permute(3, 2, 0, 1).to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+
+
+def k2_library_bf16(x, w_cl, g, b, r, act):
+    """cuDNN/ATen composition of K2's function at K2's precision (the
+    yardstick): the float32 NHWC x cast to bf16 (a channels-last NCHW view
+    of it), cuDNN's bf16 conv on channels-last with float32 accumulation,
+    its bf16 output back to float32 for F.layer_norm, act and residual;
+    (B, H, W, Co) float32."""
+    y = F.conv2d(x.permute(0, 3, 1, 2).to(torch.bfloat16), w_cl, padding=1)
+    y = F.layer_norm(y.permute(0, 2, 3, 1).float(), (w_cl.shape[0],), g, b,
+                     eps=1e-5)
     y = fused_conv.apply_act(y, act)
     return y if r is None else y + r
 
@@ -261,6 +305,14 @@ K2_LINKS = [
 ]
 
 
+def k2_bounds(flops: float, nbytes: float) -> dict:
+    """K2's bound (bf16 tensor-core FLOPs or float32 bytes) and, under
+    `f32_*`, the float32 CUDA-core bound its earlier kernel was held to."""
+    f32 = bound_fields(flops, nbytes)
+    return {**bound_fields(flops, nbytes, PEAK_BF16_FLOPS),
+            "f32_bound_ms": f32["bound_ms"], "f32_bound_by": f32["bound_by"]}
+
+
 def phase_k2(rng, dev):
     recs = {}
     for (H, W, Ci, Co, act, with_res) in K2_LINKS:
@@ -276,8 +328,10 @@ def phase_k2(rng, dev):
         got = conv3x3_ln_act(x, w, g, b, r, act)
         want = conv3x3_ln_act_plain(x, w, g, b, r, act)
         xl, wl = k2_library_inputs(x, w)
+        wb = k2_bf16_weight(w)
         with cudnn_autotuned():
-            lib = k2_library(xl, wl, g, b, r, act)
+            lib = k2_library_bf16(x, wb, g, b, r, act)
+            lib32 = k2_library(xl, wl, g, b, r, act)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         assert torch.isfinite(got).all(), f"K2 {H}x{W} {Ci}->{Co} not finite"
@@ -288,13 +342,21 @@ def phase_k2(rng, dev):
                       * (2 if with_res else 1))
         rec = {"name": "K2", "shape": [1, H, W, Ci, Co], "act": act,
                "residual": with_res, "max_err": err,
+               "tile": fused_conv.kernel_tile(1, H, W, Co),
                "library_max_err": float((lib - want).abs().max()),
+               "library_f32_max_err": float((lib32 - want).abs().max()),
                "kernel_ms": time_ms(lambda: conv3x3_ln_act(x, w, g, b, r, act)),
                "plain_ms": time_ms(
                    lambda: conv3x3_ln_act_plain(x, w, g, b, r, act)),
                "library_ms": library_ms(
+                   lambda: k2_library_bf16(x, wb, g, b, r, act)),
+               "library_f32_ms": library_ms(
                    lambda: k2_library(xl, wl, g, b, r, act)),
-               **bound_fields(flops, nbytes)}
+               "device_ms": graph_ms(
+                   lambda: conv3x3_ln_act(x, w, g, b, r, act)),
+               "library_device_ms": library_device_ms(
+                   lambda: k2_library_bf16(x, wb, g, b, r, act)),
+               **k2_bounds(flops, nbytes)}
         log(json.dumps(rec))
         recs[link_key(x, w, g, r, act)] = rec
     return recs
@@ -354,10 +416,24 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-12))
 
 
+def _forward_median_ms(model, x, n: int = 12, skip: int = 2) -> float:
+    with torch.no_grad():
+        times = []
+        for i in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(x)
+            torch.cuda.synchronize()
+            if i >= skip:
+                times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
 def phase_model(card: str):
-    cfg = GWDepthConfig(dropout=0.0)
-    log(f"[model] GlassRGBD default config at {H_IMG}x{W_IMG}, bs1, random "
-        f"weights from seed {SEED} (no checkpoint in the repo)")
+    cfg = GWDepthConfig(dropout=0.0, use_pallas=True)
+    log(f"[model] GlassRGBD default config with use_pallas at "
+        f"{H_IMG}x{W_IMG}, bs1, random weights from seed {SEED} (no "
+        "checkpoint in the repo)")
     model_cpu = build_glassrgbd(cfg, SEED, device="cpu")
     model = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(SEED + 1)
@@ -397,18 +473,9 @@ def phase_model(card: str):
         assert tuple(d.shape) == shp, f"pred_depth {tuple(d.shape)}"
         assert torch.isfinite(d).all(), "pred_depth not finite"
 
-    with torch.no_grad():
-        times = []
-        for i in range(12):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            model(x)
-            torch.cuda.synchronize()
-            if i >= 2:
-                times.append((time.perf_counter() - t0) * 1e3)
-    fwd_ms = float(np.median(times))
+    fwd_ms = _forward_median_ms(model, x)
     log(f"[model] forward bs1 {H_IMG}x{W_IMG}: median {fwd_ms:.3f} ms over "
-        f"{len(times)} runs on {card}")
+        f"10 runs on {card}")
     with torch.no_grad():
         profile_device(lambda: model(x), fwd_ms, "forward_ms", "profile")
 
@@ -429,6 +496,29 @@ def phase_model(card: str):
         assert cmp[k] <= DENSE_REL_L2_TOL, \
             f"{k}: card vs CPU rel L2 {cmp[k]} > {DENSE_REL_L2_TOL}"
     log("[model] card vs CPU: " + json.dumps(cmp))
+
+    # the same weights without the kernels, as use_pallas=False routes
+    plain = build_glassrgbd(cfg.replace(use_pallas=False), SEED,
+                            device="cpu").to("cuda")
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        out_plain = plain(x)
+        torch.cuda.synchronize()
+        n = _counts()
+    log(f"[model] use_pallas=False forward launches: {n}")
+    assert n["k1"] == n["k2"] == n["k2_bwd"] == 0, n
+    plain_ms = _forward_median_ms(plain, x)
+    gap = {k: _rel_l2(out_plain[k], out[k]) for k in
+           ("pred_logits", "pred_lines", "pred_seg")}
+    gap["pred_depth[-1]"] = _rel_l2(out_plain["pred_depth"][-1],
+                                    out["pred_depth"][-1])
+    log(f"[model] use_pallas=False forward: median {plain_ms:.3f} ms; "
+        f"relative L2 from the kernels' forward {json.dumps(gap)}")
+    with torch.no_grad():
+        profile_device(lambda: plain(x), plain_ms, "forward_ms",
+                       "profile-no-pallas")
     return k1_n, k2_n, k2_links, k34_n
 
 
@@ -449,10 +539,17 @@ def phase_serve():
         for name, (h, w) in sizes.items():
             arr = (rng.random((h, w, 3)) * 255).astype(np.uint8)
             Image.fromarray(arr).save(os.path.join(src, f"{name}.png"))
+        torch.cuda.synchronize()
+        _reset_counts()
         t0 = time.perf_counter()
         predict_main(["--images", src, "--output_dir", dst,
                       "--device", "cuda"])
+        torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        n = _counts()
+        want = {"k1": K1_PER_FORWARD * len(sizes),
+                "k2": K2_FWD_PER_FORWARD * len(sizes)}
+        assert {k: n[k] for k in want} == want, (n, want)
         for name, (h, w) in sizes.items():
             for suffix in ("_depth.npy", "_depth.png", "_seg.png",
                            "_lines.json"):
@@ -461,7 +558,8 @@ def phase_serve():
             depth = np.load(os.path.join(dst, f"{name}_depth.npy"))
             assert depth.shape == (h, w) and np.isfinite(depth).all(), \
                 f"{name}: depth {depth.shape}"
-    log(f"[serve] {len(sizes)} images through predict.main in {secs:.1f} s")
+    log(f"[serve] {len(sizes)} images through predict.main in {secs:.1f} s; "
+        f"launches {n}")
 
 
 # ---------------------------------------------------------------------------
@@ -486,10 +584,11 @@ K1_PER_FORWARD = 4
 TRAIN_HW = (704, 1024)
 TRAIN_BS = 2
 K1_TRAIN_SHAPE = (TRAIN_BS, 980, 40, 16)
-# gradients: kernel Function vs autograd through the plain version, both
-# float32; the weight gradient sums B*H*W = up to 90k products per
-# element in another order, so the tolerance scales with max(1, the
-# call's largest |reference gradient|)
+# gradients: kernel Function vs autograd through the plain version (whose
+# conv carries the JAX package's VJP: dx from bf16-rounded dc and weights,
+# dw in float32), both summing float32 products; the weight gradient sums
+# B*H*W = up to 90k products per element in another order, so the
+# tolerance scales with max(1, the call's largest |reference gradient|)
 GRAD_TOL = 1e-4
 # train step card vs CPU at the shipped widths: the losses pass through the
 # host matcher and the top-k point choices, where a float near-tie could
@@ -497,6 +596,17 @@ GRAD_TOL = 1e-4
 TRAIN_LOSS_REL_TOL = 1e-3
 # every gradient tensor above a norm floor of 1e-6 x the largest
 TRAIN_GRAD_REL_L2_TOL = 1e-3
+# the same with K2's bf16 taps: both devices round each link's input (and
+# the backward's cotangent) to bf16, but their float32 sums leave some
+# values on opposite sides of a rounding boundary, which then round a bf16
+# step apart along the 12-link trunks; on an H100 the point heads' input
+# projections, at the end of the 1/8 trunk, read 1.05e-2 (median 5.7e-4),
+# and these limits leave 2.4x and 2.6x room above that
+BF16_GRAD_REL_L2_MAX_TOL = 2.5e-2
+BF16_GRAD_REL_L2_MEDIAN_TOL = 1.5e-3
+# the control, the CPU's bf16-tap step on images perturbed by 1e-7, must
+# read at least this many times the limits
+CONTROL_MARGIN = 3.0
 
 
 def bwd_time_ms(y, leaves, ct, reps: int = 10, library: bool = False) -> float:
@@ -552,11 +662,18 @@ def phase_backward(rng, dev):
         want = torch.autograd.grad(y_plain, inputs, ct, retain_graph=True)
         lib_leaves = [t.requires_grad_() for t in k2_library_inputs(x, w)]
         lib_leaves += _leaves(g, b)
+        # bf16 yardstick: x (NHWC float32) and w (channels-last bf16) leaves
+        lib16_leaves = [x.detach().clone().requires_grad_(),
+                        k2_bf16_weight(w).requires_grad_(), *_leaves(g, b)]
         with cudnn_autotuned():
             y_lib = k2_library(*lib_leaves, None, act)
             dxl, dwl, dgl, dbl = torch.autograd.grad(y_lib, lib_leaves, ct,
                                                      retain_graph=True)
+            y_lib16 = k2_library_bf16(*lib16_leaves, None, act)
+            dx16, dw16, dg16, db16 = torch.autograd.grad(
+                y_lib16, lib16_leaves, ct, retain_graph=True)
         lib = (dxl.permute(0, 2, 3, 1), dwl.permute(2, 3, 1, 0), dgl, dbl)
+        lib16 = (dx16, dw16.float().permute(2, 3, 1, 0), dg16, db16)
         fwd_err = float((y - y_plain).abs().max())
         assert torch.isfinite(y).all(), f"K2 {H}x{W} {Ci}->{Co} not finite"
         assert fwd_err <= K2_TOL, \
@@ -583,32 +700,47 @@ def phase_backward(rng, dev):
         # conv) and dx (reads dc, w; writes dx)
         bwd_bytes = 4 * (2 * B * H * W * (Ci + Co) + 2 * 9 * Ci * Co)
         xl, wl = k2_library_inputs(x, w)
+        wb = k2_bf16_weight(w)
         with torch.no_grad():
             fwd = {"max_err": fwd_err,
+                   "tile": fused_conv.kernel_tile(B, H, W, Co),
                    "kernel_ms": time_ms(
                        lambda: conv3x3_ln_act(x, w, g, b, None, act)),
                    "plain_ms": time_ms(
                        lambda: conv3x3_ln_act_plain(x, w, g, b, None, act),
                        reps=10),
                    "library_ms": library_ms(
+                       lambda: k2_library_bf16(x, wb, g, b, None, act)),
+                   "library_f32_ms": library_ms(
                        lambda: k2_library(xl, wl, g, b, None, act)),
-                   **bound_fields(conv_flops, fwd_bytes)}
+                   "device_ms": graph_ms(
+                       lambda: conv3x3_ln_act(x, w, g, b, None, act)),
+                   "library_device_ms": library_device_ms(
+                       lambda: k2_library_bf16(x, wb, g, b, None, act)),
+                   **k2_bounds(conv_flops, fwd_bytes)}
             bwd_kernel_ms = time_ms(kernel_bwd)
+            bwd_kernel_device_ms = graph_ms(kernel_bwd)
             bwd_plain_convs_ms = time_ms(plain_two_convs, reps=10)
             bwd_total_ms = time_ms(lambda: fused_conv.fused_backward(
                 xd, wd, g, b, act, ct), reps=10)
         rec = {"name": "K2", "shape": [B, H, W, Ci, Co], "act": act,
                "fwd": fwd,
                "bwd": {"max_scaled_err": err,
-                       "library_max_scaled_err": _max_scaled_err(lib, want),
+                       "library_max_scaled_err": _max_scaled_err(lib16,
+                                                                 want),
+                       "library_f32_max_scaled_err": _max_scaled_err(lib,
+                                                                     want),
                        "launches": n_bwd,
                        "kernel_ms": bwd_kernel_ms,
+                       "kernel_device_ms": bwd_kernel_device_ms,
                        "plain_convs_ms": bwd_plain_convs_ms,
                        "backward_ms": bwd_total_ms,
                        "plain_ms": bwd_time_ms(y_plain, inputs, ct),
-                       "library_ms": bwd_time_ms(y_lib, lib_leaves, ct,
+                       "library_ms": bwd_time_ms(y_lib16, lib16_leaves, ct,
                                                  library=True),
-                       **bound_fields(2 * conv_flops, bwd_bytes)}}
+                       "library_f32_ms": bwd_time_ms(y_lib, lib_leaves, ct,
+                                                     library=True),
+                       **k2_bounds(2 * conv_flops, bwd_bytes)}}
         log("[backward] " + json.dumps(rec))
         recs[(B, H, W, Ci, Co, act, True, False)] = rec
 
@@ -698,7 +830,7 @@ def phase_train(card: str, tmp: str):
     log(f"[train] {n_train}+{n_val} synthetic scenes at 720x1280 in "
         f"{time.perf_counter() - t0:.1f} s")
     out = os.path.join(tmp, "exp")
-    args = ["--device", "cuda", "--with_line", "--with_dense",
+    args = ["--device", "cuda", "--use_pallas", "--with_line", "--with_dense",
             "--with_center", "--num_workers", "4", "--output_dir", out,
             "--data_path", f"{root}/rgb", "--gt_depth_path", f"{root}/depth",
             "--gt_seg_path", f"{root}/seg", "--gt_line_path", f"{root}/lines",
@@ -707,7 +839,7 @@ def phase_train(card: str, tmp: str):
     cfg = train_main.config_from_args(train_main.build_argparser()
                                       .parse_args(args))
     assert cfg.train_hw == TRAIN_HW and cfg.batch_size == TRAIN_BS
-    assert cfg.dropout == 0.1 and cfg.num_queries == 100
+    assert cfg.dropout == 0.1 and cfg.num_queries == 100 and cfg.use_pallas
     init = build_glassrgbd(cfg, cfg.seed, device="cpu").state_dict()
     steps = n_train // cfg.batch_size
 
@@ -785,46 +917,136 @@ def phase_train(card: str, tmp: str):
                   "step_times": times, "profile": prof}
 
 
-def phase_train_card_vs_cpu():
-    """One train step's losses and gradients on the card and on the CPU:
-    the shipped widths on a 128x192 canvas, dropout 0, one batch."""
-    from gwdepth_tpu_torch.data.batch import dummy_batch
+def _train_grads(cfg, model, batch, dev, images=None):
+    """One train step's losses, parameter gradients and sampled depth
+    points (every `certain_sample` result, on the CPU) of `model` on `dev`
+    (`images` in place of the batch's, on the CPU)."""
+    from gwdepth_tpu_torch.models import dense_encoder
     from gwdepth_tpu_torch.parallel import compute_losses
 
-    cfg = GWDepthConfig(dropout=0.0, train_hw=(128, 192))
-    batch = dummy_batch(cfg, TRAIN_BS, num_lines=6, seed=SEED)
-    model_cpu = build_glassrgbd(cfg, SEED, device="cpu").train()
-    model_gpu = copy.deepcopy(model_cpu).to("cuda")
-    res = {}
-    for name, model, dev in (("cpu", model_cpu, "cpu"),
-                             ("cuda", model_gpu, "cuda")):
-        b = batch.to(dev)
-        _, logs = compute_losses(cfg, model(b.images, b.valid), b)
-        logs["loss"].backward()
-        res[name] = ({k: float(v.detach()) for k, v in logs.items()},
-                     {n: p.grad.detach().cpu()
-                      for n, p in model.named_parameters()
-                      if p.grad is not None})
-    (lc, gc), (lg, gg) = res["cpu"], res["cuda"]
-    loss_rel = {k: abs(lg[k] - lc[k]) / max(1.0, abs(lc[k])) for k in lc}
-    top = max(float(v.norm()) for v in gc.values())
-    rel = {n: _rel_l2(gg[n], gc[n]) for n in gc
-           if float(gc[n].norm()) >= 1e-6 * top}
-    line = [n for n in rel if n.startswith(
-        ("transformer.", "class_embed", "lines_embed", "query_embed",
-         "input_proj"))]
-    worst = sorted(rel.items(), key=lambda kv: -kv[1])[:5]
-    summary = {"max_loss_rel": max(loss_rel.values()),
-               "grad_tensors": len(rel),
-               "grad_rel_l2_median": float(np.median(list(rel.values()))),
-               "grad_rel_l2_max": worst[0][1],
-               "line_branch_rel_l2_max": max(rel[n] for n in line),
-               "worst": worst}
-    log("[train-cmp] card vs CPU: " + json.dumps(summary))
-    assert set(gg) == set(gc)
-    assert summary["max_loss_rel"] <= TRAIN_LOSS_REL_TOL, loss_rel
-    assert summary["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2_TOL, worst
-    return summary
+    sample = dense_encoder.certain_sample
+    points = []
+
+    def spy(*args, **kw):
+        out = sample(*args, **kw)
+        points.append(out.detach().cpu())
+        return out
+
+    b = batch.to(dev)
+    imgs = b.images if images is None else images.to(dev)
+    dense_encoder.certain_sample = spy
+    try:
+        _, logs = compute_losses(cfg, model(imgs, b.valid), b)
+    finally:
+        dense_encoder.certain_sample = sample
+    logs["loss"].backward()
+    return ({k: float(v.detach()) for k, v in logs.items()},
+            {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}, points)
+
+
+def _grad_gaps(ga, gb) -> dict:
+    """Relative L2 of ga against gb for every tensor of gb above a norm
+    floor of 1e-6 x the largest."""
+    top = max(float(v.norm()) for v in gb.values())
+    return {n: _rel_l2(ga[n], gb[n]) for n in gb
+            if float(gb[n].norm()) >= 1e-6 * top}
+
+
+def _gap_stats(ga, gb) -> dict:
+    gaps = _grad_gaps(ga, gb)
+    worst = max(gaps, key=gaps.get)
+    return {"max": gaps[worst], "median": float(np.median(list(gaps.values()))),
+            "worst": worst}
+
+
+def _points_moved(pa, pb) -> list:
+    """Per `certain_sample` call (one per point head), the sampled pixels
+    of run a that run b did not sample, counted as multisets per image."""
+    assert len(pa) == len(pb)
+    moved = []
+    for a, b in zip(pa, pb):
+        n = 0
+        for ia, ib in zip(a, b):
+            ca = collections.Counter(map(tuple, ia.reshape(-1, 2).tolist()))
+            cb = collections.Counter(map(tuple, ib.reshape(-1, 2).tolist()))
+            n += sum((ca - cb).values())
+        moved.append(n)
+    return moved
+
+
+def phase_train_card_vs_cpu() -> dict:
+    """One train step's losses and gradients on the card and on the CPU:
+    the shipped widths on a 128x192 canvas, dropout 0, one batch, first
+    without the kernels (float32 throughout on both devices), then with
+    them (K1 and K2's bf16 taps on both devices).
+
+    Each path also runs the CPU step on images scaled by 1 + 1e-7 noise
+    (float32 resolution), and every run records the pixels that
+    `certain_sample` picks per point head (reported: how many of one
+    run's picks the other did not make), a discrete choice beside the
+    rounding carried through the links. With the kernels that
+    perturbation moves the point heads' gradients far more than the
+    card-vs-CPU gap: it is the control, a run known to differ, and the
+    bf16-tap limits must sit at least CONTROL_MARGIN below it."""
+    from gwdepth_tpu_torch.data.batch import dummy_batch
+
+    out, grads = {}, {}
+    for use_pallas in (False, True):
+        cfg = GWDepthConfig(dropout=0.0, train_hw=(128, 192),
+                            use_pallas=use_pallas)
+        batch = dummy_batch(cfg, TRAIN_BS, num_lines=6, seed=SEED)
+        model_cpu = build_glassrgbd(cfg, SEED, device="cpu").train()
+        model_gpu = copy.deepcopy(model_cpu).to("cuda")
+        lc, gc, pc = _train_grads(cfg, copy.deepcopy(model_cpu), batch,
+                                  "cpu")
+        torch.cuda.synchronize()
+        _reset_counts()
+        lg, gg, pg = _train_grads(cfg, model_gpu, batch, "cuda")
+        torch.cuda.synchronize()
+        n = _counts()
+        want = ({"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                 "k2_bwd": K2_BWD_PER_STEP} if use_pallas
+                else {"k1": 0, "k2": 0, "k2_bwd": 0})
+        assert {k: n[k] for k in want} == want, (n, want)
+        assert set(gg) == set(gc)
+        gen = torch.Generator().manual_seed(SEED)
+        noisy = batch.images * (1 + 1e-7 * torch.randn(
+            batch.images.shape, generator=gen))
+        _, gn, pn = _train_grads(cfg, model_cpu, batch, "cpu", images=noisy)
+        rel = _grad_gaps(gg, gc)
+        line = [k for k in rel if k.startswith(
+            ("transformer.", "class_embed", "lines_embed", "query_embed",
+             "input_proj"))]
+        stats = _gap_stats(gg, gc)
+        out["bf16_taps" if use_pallas else "float32"] = {
+            "launches": n,
+            "max_loss_rel": max(abs(lg[k] - lc[k]) / max(1.0, abs(lc[k]))
+                                for k in lc),
+            "grad_tensors": len(rel),
+            "grad_rel_l2_max": stats["max"],
+            "grad_rel_l2_median": stats["median"],
+            "worst": sorted(rel.items(), key=lambda kv: -kv[1])[:3],
+            "line_branch_rel_l2_max": max(rel[k] for k in line),
+            "points": [int(t.shape[0] * t.shape[1]) for t in pc],
+            "points_moved": _points_moved(pg, pc),
+            "cpu_perturbed": {**_gap_stats(gn, gc),
+                              "points_moved": _points_moved(pn, pc)}}
+        grads[use_pallas] = (gc, gg)
+    # how far K2's precision itself moves the step (reported, no limit)
+    out["bf16_taps_vs_float32"] = _gap_stats(grads[True][1], grads[False][0])
+    log("[train-cmp] card vs CPU: " + json.dumps(out))
+    f32, bf = out["float32"], out["bf16_taps"]
+    for path in (f32, bf):
+        assert path["max_loss_rel"] <= TRAIN_LOSS_REL_TOL, path
+        assert path["line_branch_rel_l2_max"] <= TRAIN_GRAD_REL_L2_TOL, path
+    assert f32["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2_TOL, f32
+    assert bf["grad_rel_l2_max"] <= BF16_GRAD_REL_L2_MAX_TOL, bf
+    assert bf["grad_rel_l2_median"] <= BF16_GRAD_REL_L2_MEDIAN_TOL, bf
+    ctl = bf["cpu_perturbed"]
+    assert ctl["max"] >= CONTROL_MARGIN * BF16_GRAD_REL_L2_MAX_TOL and \
+        ctl["median"] >= CONTROL_MARGIN * BF16_GRAD_REL_L2_MEDIAN_TOL, ctl
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -951,7 +1173,7 @@ def _sdpa_out(o, B, nW):
 
 def phase_window_attention(rng):
     t0 = time.perf_counter()
-    cfg = GWDepthConfig(dropout=0.0)
+    cfg = GWDepthConfig(dropout=0.0, use_pallas=True)
     model = build_glassrgbd(cfg, SEED, device="cuda")
     x_serve = torch.from_numpy(rng.normal(size=(1, H_IMG, W_IMG, 3))
                                .astype(np.float32)).to("cuda")
@@ -1244,13 +1466,21 @@ def main(argv=None) -> None:
          "ms": per_forward("kernel_ms"), "plain_ms": per_forward("plain_ms"),
          "bound_ms": per_forward("bound_ms"), "bound_by": bound_by(per_forward),
          "library_ms": per_forward("library_ms"),
+         "library_f32_ms": per_forward("library_f32_ms"),
+         "f32_bound_ms": per_forward("f32_bound_ms"),
+         "device_ms": per_forward("device_ms"),
+         "library_device_ms": per_forward("library_device_ms"),
          "train_launches": run["k2"],
          "train_launches_per_step": K2_FWD_PER_FORWARD,
          "train_ms": train_fwd("kernel_ms"),
          "train_plain_ms": train_fwd("plain_ms"),
          "train_bound_ms": train_fwd("bound_ms"),
          "train_bound_by": bound_by(train_fwd),
-         "train_library_ms": train_fwd("library_ms")},
+         "train_library_ms": train_fwd("library_ms"),
+         "train_library_f32_ms": train_fwd("library_f32_ms"),
+         "train_f32_bound_ms": train_fwd("f32_bound_ms"),
+         "train_device_ms": train_fwd("device_ms"),
+         "train_library_device_ms": train_fwd("library_device_ms")},
         {"name": "conv3x3_ln_act_backward", "route": "cuda",
          "source": "gwdepth_tpu_torch/csrc/conv3x3_ln_act.cu",
          "replaces": "gwdepth_tpu/ops/fused_conv.py:378",
@@ -1261,6 +1491,9 @@ def main(argv=None) -> None:
          "plain_ms": train_bwd("plain_ms"),
          "bound_ms": train_bwd("bound_ms"), "bound_by": bound_by(train_bwd),
          "library_ms": train_bwd("library_ms"),
+         "library_f32_ms": train_bwd("library_f32_ms"),
+         "f32_bound_ms": train_bwd("f32_bound_ms"),
+         "device_ms": train_bwd("kernel_device_ms"),
          "backward_ms": train_bwd("backward_ms"),
          "plain_convs_ms": train_bwd("plain_convs_ms")},
         *window_kernel_entries(win, k34_n, run),
@@ -1272,10 +1505,16 @@ def main(argv=None) -> None:
         "steps, 2 eval forwards). K2 backward: launches over that run, the "
         "times per train step; ms = the recompute and dx launches, "
         "backward_ms = the whole Function backward (kernel, LayerNorm "
-        "backward, dw matmuls), plain_ms / library_ms = autograd through "
-        "the plain version / F.conv2d + F.layer_norm + act on contiguous "
-        "NCHW with cuDNN autotuned; its max_abs_err is scaled by max(1, "
-        "the call's largest reference gradient). "
+        "backward, dw matmuls), plain_ms = autograd through the plain "
+        "version; K2's library_ms = cuDNN's bf16 conv on channels-last (x "
+        "cast from float32 NHWC) + F.layer_norm + act, library_f32_ms = "
+        "the float32 F.conv2d on contiguous NCHW + F.layer_norm + act, both "
+        "autotuned; K2's bound_ms = bf16 FLOPs at 989 TFLOP/s or float32 "
+        "bytes at 3.35 TB/s, f32_bound_ms with float32 FLOPs at 67 "
+        "TFLOP/s; K2's device_ms / library_device_ms per call of 10 "
+        "calls in a CUDA graph (the backward's: its recompute and dx); "
+        "the backward's max_abs_err is scaled by max(1, the "
+        "call's largest reference gradient). "
         f"train step median {train['step_ms']:.3f} ms, host matcher "
         f"{train['matcher_ms']:.3f} ms. K3 and K4: launches over phase 9's "
         "driven calls, model_path_launches in the serving forward and "

@@ -1,9 +1,10 @@
 """Typed configuration, field-for-field the same as `gwdepth_tpu.config`.
 
 The port keeps its own copy: importing the JAX package's config would pull
-in `jax.numpy`. `compute_dtype` returns a torch dtype. `use_pallas` and
-`decoder_blockconv` are kept so configs round-trip between the packages;
-the port ignores both (its two kernels always sit on the path, and its
+in `jax.numpy`. `compute_dtype` returns a torch dtype. `use_pallas` routes
+the model through kernels K1 and K2 where the JAX package routes it
+through its Pallas kernels (bf16 taps in K2). `decoder_blockconv` is kept
+so configs round-trip between the packages; the port ignores it (its
 decoder runs the direct tail, see `models/decoder.py`).
 """
 

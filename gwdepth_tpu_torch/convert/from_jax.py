@@ -23,6 +23,7 @@ template; any float tensor the map does not reach raises.
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -247,10 +248,12 @@ def _get(tree, path):
     return node
 
 
+@functools.lru_cache(maxsize=None)
 def _invert_key(key: str, shape):
     """[(flax_path, index_map)] for one torch tensor, index_map[i] being the
     torch flat index stored at flat position i of the flax leaf; None when
-    the map does not consume the whole tensor bijectively."""
+    the map does not consume the whole tensor bijectively. Cached: it
+    depends on the key and shape only (callers do not modify it)."""
     size = int(np.prod(shape)) if shape else 1
     probe = np.arange(size, dtype=np.float64).reshape(shape)
     overlay = torch_names_to_flax({key: probe})

@@ -17,7 +17,9 @@ an error instead of being ignored: `--mesh` other than one device,
 `--save_dense`, `--save_line`, `--dump_gt_lines`, and the model gates
 the port does not build (see `_refuse`). `--matcher` is accepted with
 either value: the port always solves the assignment exactly on the host.
-`--use_pallas` is accepted: on the card the kernels always run.
+`--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
+K2) as the JAX CLI routes it through its Pallas kernels; without it the
+model runs their plain float32 formulations, on the card too.
 """
 
 from __future__ import annotations
@@ -78,8 +80,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="accepted for compatibility: the port always solves "
                         "the assignment exactly on the host (scipy)")
     p.add_argument("--use_pallas", action="store_true",
-                   help="accepted for compatibility: on the card the port's "
-                        "CUDA kernels always run")
+                   help="run the model through kernels K1 and K2 (the "
+                        "CUDA kernels on the card)")
     p.add_argument("--remat", action="store_true")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--mesh", type=str, default="-1",

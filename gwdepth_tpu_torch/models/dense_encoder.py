@@ -7,7 +7,9 @@
         -> point-based pred (kernel K2) -> certain-sample S1 points
   1/4 : upsample + fuse C1, class layer (D/8) -> point-based pred (K2)
 
-Depth predictions here are normalized to (0, 1). Reference lines are the
+The kernels run where `cfg.use_pallas` puts them, as in the JAX package;
+otherwise their plain float32 formulations run. Depth predictions here
+are normalized to (0, 1). Reference lines are the
 top `num_ref` queries by the raw class-0 logit, endpoints only. The port
 builds the shipped gates only: with_line, no line-depth tokens, no token
 fusion, no group attention, point sampling at every scale.
@@ -107,7 +109,8 @@ class DenseEncoder(nn.Module):
         c1, c2, c3, _ = cfg.backbone_channels
         kind32 = "ref" if cfg.with_line else "plain"
         self.dense_transformer = SwinLayer(D, cfg.dense_trans_layers[0],
-                                           heads, ws, mr, kind32)
+                                           heads, ws, mr, kind32,
+                                           use_pallas=cfg.use_pallas)
         self.depth_pred32 = DepthHead(D, tC)
         self.proj_class1 = nn.Linear(D, D // 2)
         self.proj_backbn1 = ConvA(c3, D // 2)
@@ -124,7 +127,7 @@ class DenseEncoder(nn.Module):
                                             heads, ws, mr, "class", tC)
         pools = (16, 8, 4, 2)
         self.point_based_pred1 = PointBasedPred(
-            D // 4, tC, pools, cfg.interval_sample_num[0])
+            D // 4, tC, pools, cfg.interval_sample_num[0], cfg.use_pallas)
         self.proj_class3 = nn.Linear(D // 4, D // 8)
         self.proj_backbn3 = ConvA(c1, D // 8)
         self.old_depth_token_proj4 = MlpNorm(tC, tC * 2, tC)
@@ -132,7 +135,7 @@ class DenseEncoder(nn.Module):
         self.class_transformer3 = SwinLayer(D // 8, cfg.class_trans_layers[2],
                                             heads, ws, mr, "class", tC)
         self.point_based_pred2 = PointBasedPred(
-            D // 8, tC, pools, cfg.interval_sample_num[1])
+            D // 8, tC, pools, cfg.interval_sample_num[1], cfg.use_pallas)
 
     def forward(self, top_feat: torch.Tensor, pyramid: Sequence[torch.Tensor],
                 masks: Sequence[torch.Tensor],

@@ -3,10 +3,11 @@
 - `certain_sample`: `sample_num` high-variance points stratified by depth
   intervals, with the original's quirks (per-interval top-k over the
   GLOBAL variance map, index-ascending order, tile-then-repeat fill).
-- `PyramidLayer`: mini ResNet + 4-scale SPP over the per-point planes. Its
-  12-link trunk and, where the concat is at most 400 channels wide, its
-  `last0` link run through kernel K2 (`ops/fused_conv.py`); the SPP
-  branches and the wide `last0` use plain conv + LayerNorm.
+- `PyramidLayer`: mini ResNet + 4-scale SPP over the per-point planes.
+  With `use_pallas`, as in the JAX package, its 12-link trunk and, where
+  the concat is at most 400 channels wide, its `last0` link run through
+  kernel K2 (`ops/fused_conv.py`, bf16 taps); otherwise, and for the SPP
+  branches and the wide `last0`, plain float32 conv + LayerNorm.
 - `PointBasedPred`: depth = sum over points of softmax(pyramid(global x
   refer)) * anchor depth, with the original's `dim**-2` scale.
 
@@ -128,14 +129,16 @@ class ConvLn(nn.Module):
 
 class BasicBlock(nn.Module):
     """ConvLn+GELU -> ConvLn, residual; `conv1` is `Sequential(ConvLn,
-    GELU)` as in the original."""
+    GELU)` as in the original. `fuse` runs both links through K2."""
 
     def __init__(self, planes: int):
         super().__init__()
         self.conv1 = nn.Sequential(ConvLn(planes, planes), nn.GELU())
         self.conv2 = ConvLn(planes, planes)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, fuse: bool = False) -> torch.Tensor:
+        if not fuse:
+            return self.conv2(self.conv1(x)) + x
         out = self.conv1[0].fused(x, "gelu")
         # the residual add stays outside the kernel, as in the JAX package
         return self.conv2.fused(out) + x
@@ -145,11 +148,14 @@ class PyramidLayer(nn.Module):
     """Mini ResNet + SPP over per-point planes; in/out channels = points.
     The module containers mirror the original's Sequentials; index 0 of
     each `branchK` stands for its average pool, which runs here as a
-    separable matmul (`avg_pool_matmul_nhwc`)."""
+    separable matmul (`avg_pool_matmul_nhwc`). `use_pallas` fuses the
+    trunk and the narrow `last0` into K2, as the JAX module does."""
 
-    def __init__(self, in_dim: int, pool_sizes: Tuple[int, ...]):
+    def __init__(self, in_dim: int, pool_sizes: Tuple[int, ...],
+                 use_pallas: bool = False):
         super().__init__()
         d2 = in_dim * 2
+        self.use_pallas = use_pallas
         self.pool_sizes = tuple(pool_sizes)
         self.firstconv = nn.Sequential(ConvLn(in_dim, in_dim), nn.GELU(),
                                        ConvLn(in_dim, d2), nn.GELU())
@@ -166,11 +172,15 @@ class PyramidLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x (B, H, W, P) -> (B, H, W, P)."""
         _, H, W, _ = x.shape
-        x = self.firstconv[0].fused(x, "gelu")
-        x = self.firstconv[2].fused(x, "gelu")
+        fuse = self.use_pallas
+        if fuse:
+            x = self.firstconv[0].fused(x, "gelu")
+            x = self.firstconv[2].fused(x, "gelu")
+        else:
+            x = self.firstconv(x)
         for layer in (self.layer1, self.layer2, self.layer3):
             for blk in layer:
-                x = blk(x)
+                x = blk(x, fuse)
         # pad so the largest pool fits
         k0 = self.pool_sizes[0]
         Hp, Wp = max(H, k0), max(W, k0)
@@ -184,7 +194,7 @@ class PyramidLayer(nn.Module):
                                                         align_corners=True))
         xx = torch.cat(branches, dim=-1)
         last0 = self.lastconv[0]
-        if xx.shape[-1] <= FUSE_LAST0_MAX_CI:
+        if fuse and xx.shape[-1] <= FUSE_LAST0_MAX_CI:
             x = last0.fused(xx, "gelu")
         else:
             x = F.gelu(last0(xx))
@@ -200,12 +210,13 @@ class PointBasedPred(nn.Module):
     """Depth from sampled anchor points."""
 
     def __init__(self, dim: int, token_dim: int,
-                 pool_sizes: Tuple[int, ...], point_num: int):
+                 pool_sizes: Tuple[int, ...], point_num: int,
+                 use_pallas: bool = False):
         super().__init__()
         self.dim = dim
         self.pre_proj = nn.Linear(dim + token_dim, dim)
         self.refer_proj = nn.Linear(dim, 2 * dim)
-        self.pyramid = PyramidLayer(point_num, pool_sizes)
+        self.pyramid = PyramidLayer(point_num, pool_sizes, use_pallas)
 
     def forward(self, x, depth_token, pre_depth, coords, pos_embedding):
         """x (B, H, W, C); depth_token (B, H, W, tC); pre_depth (B, H, W);

@@ -2,7 +2,8 @@
 
 - `RefWindowAttention`: Swin W-MSA whose query is replaced by an
   attention-weighted mix of line-reference features; the query->reference
-  attention map is diffused by kernel K1 (`ops/ref_attn_diffusion.py`).
+  attention map is diffused by kernel K1 (`ops/ref_attn_diffusion.py`)
+  with `use_pallas`, as in the JAX package, else by `diffusion_torch`.
 - `WindowClassAttention`: W-MSA plus per-pixel depth/seg class-token
   channel cross-attention.
 - `PlainWindowAttention`: vanilla Swin attention (line branch off).
@@ -31,7 +32,8 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
-from gwdepth_tpu_torch.ops.ref_attn_diffusion import ref_attn_diffusion
+from gwdepth_tpu_torch.ops.ref_attn_diffusion import (diffusion_torch,
+                                                      ref_attn_diffusion)
 from gwdepth_tpu_torch.ops.window_msa import window_msa_kernel
 from gwdepth_tpu_torch.ops.window import (shifted_window_attn_mask,
                                           window_partition, window_reverse)
@@ -99,11 +101,13 @@ def window_msa(q, k, v, bias: torch.Tensor, mask: Optional[torch.Tensor],
 
 class RefAttnDiffusion(nn.Module):
     """3-step conv diffusion of the query->reference attention map (kernel
-    K1). `weight` (H, H, 3, 3) and `bias` (H,) as the original's
-    `nn.Conv2d(heads, heads, 3, padding=1)`."""
+    K1 with `use_pallas`, else `diffusion_torch`). `weight` (H, H, 3, 3)
+    and `bias` (H,) as the original's `nn.Conv2d(heads, heads, 3,
+    padding=1)`."""
 
-    def __init__(self, heads: int):
+    def __init__(self, heads: int, use_pallas: bool = False):
         super().__init__()
+        self.use_pallas = use_pallas
         self.weight = nn.Parameter(torch.zeros(heads, heads, 3, 3))
         self.bias = nn.Parameter(torch.zeros(heads))
 
@@ -111,7 +115,8 @@ class RefAttnDiffusion(nn.Module):
         """ref_attn (B, nW, H, N, R) -> same."""
         B, nW, H, N, R = ref_attn.shape
         a = ref_attn.permute(0, 1, 3, 4, 2).reshape(B, nW * N, R, H)
-        a = ref_attn_diffusion(a, self.weight.permute(2, 3, 1, 0), self.bias)
+        diffuse = ref_attn_diffusion if self.use_pallas else diffusion_torch
+        a = diffuse(a, self.weight.permute(2, 3, 1, 0), self.bias).to(a.dtype)
         return a.reshape(B, nW, N, R, H).permute(0, 1, 4, 2, 3)
 
 
@@ -136,7 +141,8 @@ def ref_query_mixture(attn: "RefWindowAttention", q: torch.Tensor,
 class RefWindowAttention(RelPosBias):
     """Line-referenced W-MSA."""
 
-    def __init__(self, dim: int, window_size: int, num_heads: int):
+    def __init__(self, dim: int, window_size: int, num_heads: int,
+                 use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, 3 * dim)
@@ -145,7 +151,7 @@ class RefWindowAttention(RelPosBias):
         self.ref_qk = nn.Linear(dim, 2 * dim)
         self.diff_mu = nn.Parameter(torch.zeros(1, 1, dim))
         self.diff_logsigma = nn.Parameter(torch.zeros(1, 1, dim))
-        self.ref_attn_diffusion = RefAttnDiffusion(num_heads)
+        self.ref_attn_diffusion = RefAttnDiffusion(num_heads, use_pallas)
 
     def forward(self, x, x_ref, mask):
         """x (B, nW, N, C); x_ref (B, n_rf, C); mask (nW, N, N) or None."""
@@ -260,7 +266,7 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float, attn_kind: str,
-                 token_dim: int = 0):
+                 token_dim: int = 0, use_pallas: bool = False):
         super().__init__()
         self.dim = dim
         self.window_size = window_size
@@ -269,7 +275,8 @@ class SwinBlock(nn.Module):
         self.token_dim = token_dim
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         if attn_kind == "ref":
-            self.attn = RefWindowAttention(dim, window_size, num_heads)
+            self.attn = RefWindowAttention(dim, window_size, num_heads,
+                                           use_pallas)
         elif attn_kind == "class":
             self.attn = WindowClassAttention(dim, window_size, num_heads,
                                              token_dim)
@@ -354,16 +361,17 @@ class SwinBlock(nn.Module):
 
 
 class SwinLayer(nn.Module):
-    """`blocks.N`: SwinBlocks with alternating shift 0 / ws//2."""
+    """`blocks.N`: SwinBlocks with alternating shift 0 / ws//2;
+    `use_pallas` reaches the ref blocks' diffusion (K1)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, attn_kind: str,
-                 token_dim: int = 0):
+                 token_dim: int = 0, use_pallas: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      attn_kind, token_dim)
+                      attn_kind, token_dim, use_pallas)
             for i in range(depth))
 
     def forward(self, x, ref_coords=None, ref_pos=None, depth_token=None,

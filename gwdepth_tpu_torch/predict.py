@@ -11,9 +11,13 @@ Outputs per image `<name>`:
   <name>_lines.json   {"lines": [[x1,y1,x2,y2]...] original-pixel coords,
                        "centers": [[x,y]...], "scores": [...]}
 
+On the card the model runs kernels K1 and K2 (`use_pallas`, bf16 taps in
+K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
+
 Usage:
   python -m gwdepth_tpu_torch.predict --images <dir|file> --output_dir out \
-      [--torch_init <original.pth>] [--score 0.75] [--tiny] [--device cuda]
+      [--torch_init <original.pth>] [--score 0.75] [--tiny] [--device cuda] \
+      [--no_pallas]
 """
 
 from __future__ import annotations
@@ -49,7 +53,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--no_line", action="store_true",
                    help="depth/seg only (not built by the port yet)")
     p.add_argument("--no_pallas", action="store_true",
-                   help="kernel-free path; on the port, use --device cpu")
+                   help="kernel-free path: the model's plain float32 "
+                        "formulations in place of kernels K1 and K2")
     p.add_argument("--batch", type=int, default=1,
                    help="images per forward pass (last batch pads by "
                         "repeating)")
@@ -118,6 +123,20 @@ def load_original_checkpoint(model, path: str) -> List[str]:
     return list(res.unexpected_keys)
 
 
+def config_from_args(args: argparse.Namespace):
+    """The model config of a run: the kernels (`use_pallas`) on the card
+    unless `--no_pallas`, as the JAX CLI turns its Pallas kernels on on a
+    TPU; off on the CPU."""
+    from gwdepth_tpu_torch.config import GWDepthConfig, tiny_test_config
+
+    cfg = tiny_test_config() if args.tiny else GWDepthConfig(dropout=0.0)
+    if args.device == "cuda" and not args.no_pallas:
+        cfg = cfg.replace(use_pallas=True)
+    if args.eval_h and args.eval_w:
+        cfg = cfg.replace(eval_hw=(args.eval_h, args.eval_w))
+    return cfg
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     if args.resume:
@@ -130,19 +149,12 @@ def main(argv=None):
                          "yet")
     if args.no_line:
         raise SystemExit("--no_line is not built by the PyTorch port yet")
-    if args.no_pallas and args.device == "cuda":
-        raise SystemExit("the port has no kernel-free path on the card; "
-                         "--device cpu runs the plain versions")
-
     import torch
-    from gwdepth_tpu_torch.config import GWDepthConfig, tiny_test_config
     from gwdepth_tpu_torch.models import build_glassrgbd
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but CUDA is not available")
-    cfg = tiny_test_config() if args.tiny else GWDepthConfig(dropout=0.0)
-    if args.eval_h and args.eval_w:
-        cfg = cfg.replace(eval_hw=(args.eval_h, args.eval_w))
+    cfg = config_from_args(args)
     cfg.set_matmul_precision()
 
     files = list_images(args.images)

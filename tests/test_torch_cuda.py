@@ -7,8 +7,10 @@ JAX, so skip it there:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerance 1e-4 max-abs: both sides are float32 (the plain version's
-matmuls without TF32), and the kernels only reassociate the sums.
+Tolerance 1e-4 max-abs: both sides sum float32 products (the plain
+version's matmuls without TF32; K2's products of operands rounded to bf16
+on both sides, which are exact in float32), and the kernels only
+reassociate the sums.
 """
 
 import numpy as np
@@ -78,14 +80,75 @@ def _k2_inputs(seed, ci, co, dev, B=1, H=19, W=70):
 
 
 @pytest.mark.parametrize("act", [None, "gelu", "elu"])
-@pytest.mark.parametrize("ci,co", [(30, 60), (300, 120), (160, 160), (3, 5),
-                                   (17, 256)])
+@pytest.mark.parametrize("ci,co", [(30, 30), (30, 60), (60, 60), (80, 80),
+                                   (80, 160), (120, 120), (160, 160),
+                                   (300, 120), (3, 5), (17, 256)])
 def test_k2_kernel_matches_plain(dev, act, ci, co):
-    x, w, g, b, r = _k2_inputs(2, ci, co, dev)
+    """The main path's widths (W = 70 is not a multiple of the 32-pixel
+    tile), with LN, with LN and a residual, and bare; batch 2."""
+    x, w, g, b, r = _k2_inputs(2, ci, co, dev, B=2)
     for args in ((g, b, None), (g, b, r), (None, None, None)):
         got = port_fc.conv3x3_ln_act(x, w, *args, act)
         want = port_fc.conv3x3_ln_act_plain(x, w, *args, act)
         torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+@pytest.mark.parametrize("co,ci", [(30, 30), (60, 30), (60, 60), (120, 300),
+                                   (80, 80), (160, 80), (160, 160)])
+def test_k2_dx_conv_matches_plain(dev, co, ci):
+    """The backward's dx conv of each main-path link: Co -> Ci channels on
+    the rotated, io-transposed weights, no LN (Ci = 300 in two pieces)."""
+    _, w, _, _, dc = _k2_inputs(9, ci, co, dev, B=2)
+    w_flip = w.flip(0, 1).transpose(2, 3)                # (3, 3, Co, Ci)
+    port_fc.reset_counts()
+    got = port_fc._conv_bwd(dc, w_flip)
+    assert port_fc.conv3x3_ln_act.bwd_launches == -(-ci // port_fc.MAX_CO)
+    torch.testing.assert_close(
+        got, port_fc.conv3x3_ln_act_plain(dc, w_flip), atol=TOL, rtol=0)
+
+
+def test_k2_kernel_tiles(dev):
+    """The block tiles the kernel picks per plane (MT m16 tiles per warp,
+    warps): these planes, ragged in both directions, take all three, and
+    each matches the plain version."""
+    seen = set()
+    for B, H, W, co in ((2, 19, 70, 60), (2, 175, 250, 80), (2, 175, 250,
+                                                             160)):
+        x, w, g, b, _ = _k2_inputs(10, 32, co, dev, B=B, H=H, W=W)
+        seen.add(port_fc.kernel_tile(B, H, W, co))
+        torch.testing.assert_close(
+            port_fc.conv3x3_ln_act(x, w, g, b, act="gelu"),
+            port_fc.conv3x3_ln_act_plain(x, w, g, b, act="gelu"),
+            atol=TOL, rtol=0)
+    assert seen == {(1, 4), (1, 8), (2, 8)}, seen
+
+
+def test_k2_kernel_odd_channels_and_offset_input(dev):
+    """An x that starts 4 bytes into its storage (the kernel stages it with
+    4-byte copies, though Ci = 8 would allow 16), Ci = 7 likewise, and an
+    odd Co, stored without float2."""
+    x, w, g, b, r = _k2_inputs(11, 8, 9, dev, B=3)
+    x = torch.cat([x.reshape(-1)[:1], x.reshape(-1)])[1:].view(x.shape)
+    assert x.data_ptr() % 8 == 4
+    torch.testing.assert_close(
+        port_fc.conv3x3_ln_act(x, w, g, b, r, "elu"),
+        port_fc.conv3x3_ln_act_plain(x, w, g, b, r, "elu"),
+        atol=TOL, rtol=0)
+    x, w, g, b, r = _k2_inputs(11, 7, 9, dev, B=3)
+    torch.testing.assert_close(
+        port_fc.conv3x3_ln_act(x, w, g, b, r, "gelu"),
+        port_fc.conv3x3_ln_act_plain(x, w, g, b, r, "gelu"),
+        atol=TOL, rtol=0)
+
+
+def test_k2_kernel_refuses_float32_taps(dev):
+    """The kernel multiplies bf16 taps only: fast=False raises on the card
+    before any launch; no model path asks for it."""
+    x, w, g, b, _ = _k2_inputs(12, 8, 8, dev, H=4, W=5)
+    port_fc.reset_counts()
+    with pytest.raises(ValueError, match="fast=False"):
+        port_fc.conv3x3_ln_act(x, w, g, b, act="gelu", fast=False)
+    assert port_fc.conv3x3_ln_act.launches == 0
 
 
 def test_k2_kernel_batch_and_count(dev):

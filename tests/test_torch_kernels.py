@@ -6,9 +6,12 @@ against the JAX formulations and the Pallas kernels in interpret mode.
 The CUDA kernels themselves are held against the same plain versions on
 the card (`tests/test_torch_cuda.py`, and `chip_smoke.py`).
 
-Tolerances: float32 against float32 is reassociation (1e-5 / 2e-5); the
-JAX fused conv in `fast=True` mode multiplies bf16 taps, so that
-comparison uses the bf16-tap tolerance of tests/test_fused_conv.py (5e-2).
+Tolerances: float32 against float32 is reassociation (1e-5 / 2e-5). K2
+with `fast=True` (bf16 taps, float32 accumulation) is held against the JAX
+fused conv with `fast=True` in interpret mode: both round x and w to bf16
+the same way (round to nearest even) and the product of two bf16 numbers
+is exact in float32, so they differ by the order of the float32 sums
+only (1e-5).
 """
 
 import jax
@@ -110,20 +113,40 @@ def test_k2_plain_matches_reference(act, ci):
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
         act=act))
     got = port_fc.conv3x3_ln_act_plain(_t(x), _t(w), _t(g), _t(b),
-                                       act=act).numpy()
+                                       act=act, fast=False).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.parametrize("act", [None, "gelu", "elu"])
 @pytest.mark.parametrize("ci", [16, 300])
 def test_k2_plain_matches_pallas_bf16_taps(act, ci):
+    """The port's K2 in its default `fast=True` against the Pallas kernel
+    with `fast=True`: both round x and w to bf16 (nearest even) and sum the
+    exact float32 products, so only the order of the sums differs, and
+    after the LayerNorm that stays below 1e-5 (a float32 plain version
+    differs from the Pallas kernel by 1.1e-2 here)."""
     x, w, g, b, _ = _k2_inputs(ci + 1, ci, H=8, W=12)
     want = np.asarray(jax_conv3x3(
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
         act=act, fast=True, interpret=True, k_chunk=128))
     got = port_fc.conv3x3_ln_act(_t(x), _t(w), _t(g), _t(b),
                                  act=act).numpy()
-    np.testing.assert_allclose(got, want, atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+
+
+def test_k2_fast_rounds_operands_to_bf16():
+    """`fast=True` is the float32 contraction of x and w rounded to bf16
+    by round to nearest even (torch's cast and the TPU kernel's astype),
+    and nothing else."""
+    x, w, g, b, _ = _k2_inputs(4, 24, co=16, H=5, W=6)
+    xr, wr = (t.astype(np.float32).view(np.uint32) for t in (x, w))
+    # round to nearest even on the upper 16 bits, by integer arithmetic
+    xr, wr = (((t + 0x7FFF + ((t >> 16) & 1)) & 0xFFFF0000).view(np.float32)
+              for t in (xr, wr))
+    got = port_fc.conv3x3_ln_act(_t(x), _t(w), _t(g), _t(b), act="gelu")
+    want = port_fc.conv3x3_ln_act_plain(_t(xr), _t(wr), _t(g), _t(b),
+                                        act="gelu", fast=False)
+    assert torch.equal(got, want)
 
 
 def test_k2_residual_and_no_ln():
@@ -132,17 +155,22 @@ def test_k2_residual_and_no_ln():
         jnp.asarray(x), jnp.asarray(w), jnp.asarray(g), jnp.asarray(b),
         residual=jnp.asarray(r), act="gelu"))
     got = port_fc.conv3x3_ln_act(_t(x), _t(w), _t(g), _t(b), _t(r),
-                                 "gelu").numpy()
+                                 "gelu", fast=False).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
     want = np.asarray(conv3x3_ln_act_reference(
         jnp.asarray(x), jnp.asarray(w), act="elu"))
-    got = port_fc.conv3x3_ln_act(_t(x), _t(w), act="elu").numpy()
+    got = port_fc.conv3x3_ln_act(_t(x), _t(w), act="elu",
+                                 fast=False).numpy()
     np.testing.assert_allclose(got, want, atol=2e-5, rtol=1e-4)
 
 
 def test_k2_chain_matches_frame_chain():
     """Links chained in NHWC read zero borders exactly as the JAX frame
-    chain does (it zeroes its junk columns between links)."""
+    chain does (it zeroes its junk columns between links). Both chains
+    round each link's input to bf16 (measured 4.8e-7 apart here, so one
+    link's 1e-5 holds): an activation that the two float32 sum orders left
+    on opposite sides of a bf16 rounding boundary would round one bf16
+    step (2^-8 relative) apart and show at about 1e-3."""
     rng = np.random.default_rng(11)
     B, H, W, C = 1, 9, 13, 8
     x = rng.normal(size=(B, H, W, C)).astype(np.float32)
@@ -161,7 +189,25 @@ def test_k2_chain_matches_frame_chain():
     y = _t(x)
     for w, act in zip(ws, acts):
         y = port_fc.conv3x3_ln_act(y, _t(w), _t(g), _t(b), act=act)
-    np.testing.assert_allclose(y.numpy(), want, atol=5e-2, rtol=5e-2)
+    np.testing.assert_allclose(y.numpy(), want, atol=1e-5, rtol=0)
+
+
+def test_k2_weight_view_reads_the_rotated_transpose_in_place():
+    """The backward's dx conv weight, w[2 - ky, 2 - kx, co, ci], is read by
+    the kernel's weight tiling through `weight_view`'s offset and
+    strides, without a flipped copy; also on a sliced (non-contiguous)
+    piece of w, as the dx split passes it."""
+    w = torch.arange(3 * 3 * 7 * 5, dtype=torch.float32).reshape(3, 3, 7, 5)
+    flat = w.flatten()
+    for ww in (w, w[:, :, 2:6]):
+        base = ww.storage_offset()
+        for flip in (False, True):
+            ci, co, off, st = port_fc.weight_view(ww, flip)
+            want = ww.flip(0, 1).transpose(2, 3) if flip else ww
+            assert (ci, co) == tuple(want.shape[2:])
+            idx = torch.tensor(np.indices(want.shape).reshape(4, -1).T)
+            got = flat[base + off + (idx * torch.tensor(st)).sum(1)]
+            assert torch.equal(got.reshape(want.shape), want)
 
 
 def test_k2_wrapper_raises_on_other_devices():

@@ -7,12 +7,20 @@ package's importer and then perturbed leaf by leaf from a numpy seed, so
 neither side's init shapes the result. The port receives them through its
 own `convert/from_jax.py` with `strict=True`.
 
-Tolerances, scaled by max(1, |reference|):
-  - JAX `use_pallas=False`: float32 against float32, reassociation only
+The port runs once per `use_pallas` value, against the JAX model with the
+same value. Tolerances, scaled by max(1, |reference|):
+  - `use_pallas=False`: float32 against float32, reassociation only
     (1e-4);
-  - JAX `use_pallas=True` in interpret mode: the fused pyramid convs there
-    multiply bf16 taps, the bf16-tap tolerance of tests/test_fused_conv.py
-    (5e-2). Lines and logits never reach those convs and stay at 1e-4.
+  - `use_pallas=True`: both packages run their fused pyramid convs with
+    bf16 taps (the JAX Pallas kernel in interpret mode), rounding the same
+    float32 activations the same way, so they agree to reassociation as
+    well; but an activation that the two float32 sum orders leave on
+    opposite sides of a bf16 rounding boundary rounds one bf16 step
+    (2^-8 relative) apart, and the later links, the point-sampling
+    choices and the depth decoder carry it on; depth and seg are held at
+    BF16_TAP_TOL, 1e-4 (measured 5.1e-5, at the 1/8 depth; 2.2e-6 at
+    most with `use_pallas=False`). Lines and logits never reach those
+    convs.
 """
 
 import json
@@ -33,12 +41,13 @@ from gwdepth_tpu.models import GlassRGBD as JGlassRGBD
 from gwdepth_tpu_torch import predict
 from gwdepth_tpu_torch.config import tiny_test_config
 from gwdepth_tpu_torch.convert import jax_params_to_state_dict
+from gwdepth_tpu_torch.models import points, swin
 from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD, init_weights
 
 from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 
 F32_TOL = 1e-4
-BF16_TAP_TOL = 5e-2
+BF16_TAP_TOL = 1e-4
 
 
 def _perturb(tree, rng):
@@ -53,22 +62,43 @@ def _perturb(tree, rng):
 
 @pytest.fixture(scope="module")
 def bundle():
+    """The port forward once per `use_pallas` value, with the same
+    perturbed weights, counting the calls of the K1 and K2 wrappers at
+    the names the model modules call them by."""
     cfg = tiny_test_config()
     sd = {k: v.numpy()
           for k, v in init_weights(GlassRGBD(cfg), 0).state_dict().items()}
     params = _perturb(glassrgbd_torch_to_flax(sd), np.random.default_rng(1))
-    model = GlassRGBD(cfg)
-    model.load_state_dict(jax_params_to_state_dict(params, model.state_dict()),
-                          strict=True)
     H, W = cfg.eval_hw
     rng = np.random.default_rng(2)
     x = rng.normal(size=(2, H, W, 3)).astype(np.float32)
     valid = np.ones((2, H, W), bool)
     valid[1, 40:] = False
     valid[1, :, 70:] = False
-    with torch.no_grad():
-        got = model.eval()(torch.from_numpy(x), torch.from_numpy(valid))
-    return dict(params=params, model=model, x=x, valid=valid, got=got)
+    got, calls = {}, {}
+    for use_pallas in (False, True):
+        model = GlassRGBD(tiny_test_config(use_pallas=use_pallas))
+        model.load_state_dict(
+            jax_params_to_state_dict(params, model.state_dict()), strict=True)
+        seen = {"k1": 0, "k2": 0}
+        with pytest.MonkeyPatch.context() as mp:
+            for mod, name, key in ((swin, "ref_attn_diffusion", "k1"),
+                                   (points, "conv3x3_ln_act", "k2")):
+                mp.setattr(mod, name, _counting(getattr(mod, name), seen,
+                                                key))
+            with torch.no_grad():
+                got[use_pallas] = model.eval()(torch.from_numpy(x),
+                                               torch.from_numpy(valid))
+        calls[use_pallas] = seen
+    return dict(cfg=cfg, params=params, model=model, x=x, valid=valid,
+                got=got, calls=calls)
+
+
+def _counting(fn, seen, key):
+    def spy(*args, **kw):
+        seen[key] += 1
+        return fn(*args, **kw)
+    return spy
 
 
 def _jax_forward(bundle, use_pallas):
@@ -87,7 +117,7 @@ def _close(got, want, tol):
 @pytest.mark.parametrize("use_pallas,dense_tol", [(False, F32_TOL),
                                                   (True, BF16_TAP_TOL)])
 def test_glassrgbd_matches_jax(bundle, use_pallas, dense_tol):
-    got, want = bundle["got"], _jax_forward(bundle, use_pallas)
+    got, want = bundle["got"][use_pallas], _jax_forward(bundle, use_pallas)
     for k in ("pred_logits", "pred_lines"):
         _close(got[k], want[k], F32_TOL)
     for g, w in zip(got["aux_outputs"], want["aux_outputs"]):
@@ -97,6 +127,20 @@ def test_glassrgbd_matches_jax(bundle, use_pallas, dense_tol):
     for g, w in zip(got["pred_depth"], want["pred_depth"]):
         _close(g, w, dense_tol)
     _close(got["pred_seg"], want["pred_seg"], dense_tol)
+
+
+def test_model_routes_kernels_by_use_pallas(bundle):
+    """As in the JAX package: `use_pallas=False` calls neither kernel
+    wrapper; `True` calls K1 once per line-reference block and K2 for the
+    12 trunk links of each point head and for its `last0` where the concat
+    is at most 400 channels wide."""
+    cfg = bundle["cfg"]
+    assert bundle["calls"][False] == {"k1": 0, "k2": 0}
+    k2 = sum(12 + (5 * 2 * p <= points.FUSE_LAST0_MAX_CI)
+             for p in cfg.interval_sample_num[:2])
+    assert bundle["calls"][True] == {"k1": cfg.dense_trans_layers[0],
+                                     "k2": k2}
+    assert k2 == 26
 
 
 def test_from_jax_matches_export_torch(bundle):
@@ -119,9 +163,9 @@ def test_from_jax_strict_load_and_missing_leaf(bundle):
         jax_params_to_state_dict(bundle["params"], model.state_dict()),
         strict=True)
     assert not res.missing_keys and not res.unexpected_keys
+    want = bundle["model"].state_dict()
     for k, v in model.state_dict().items():
-        torch.testing.assert_close(v, bundle["model"].state_dict()[k],
-                                   rtol=0, atol=0)
+        torch.testing.assert_close(v, want[k], rtol=0, atol=0)
     params = dict(bundle["params"])
     del params["query_embed"]
     with pytest.raises(KeyError, match="query_embed"):
@@ -198,8 +242,20 @@ def test_predict_cli_torch_init(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [["--resume", "ckpt"], ["--mesh", "4"],
-                                  ["--no_pallas"]])
+                                  ["--save_vis"]])
 def test_predict_cli_refuses_what_the_port_lacks(tmp_path, flag):
     with pytest.raises(SystemExit, match="port"):
         predict.main(["--images", os.fspath(tmp_path), "--output_dir",
                       os.fspath(tmp_path / "o"), "--tiny", *flag])
+
+
+@pytest.mark.parametrize("device,flags,use_pallas", [
+    ("cuda", [], True), ("cuda", ["--no_pallas"], False), ("cpu", [], False)])
+def test_predict_routes_kernels_as_jax(device, flags, use_pallas):
+    """The kernels run on the card unless --no_pallas, as the JAX CLI runs
+    its Pallas kernels on a TPU unless --no_pallas; the CPU runs the plain
+    formulations."""
+    args = predict.build_argparser().parse_args(
+        ["--images", "x", "--output_dir", "o", "--tiny", "--device", device,
+         *flags])
+    assert predict.config_from_args(args).use_pallas is use_pallas

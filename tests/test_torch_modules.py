@@ -274,14 +274,16 @@ def _pyramid_params(P, x, use_pallas):
 
 @pytest.mark.parametrize("use_pallas,tol", [(False, 1e-5), (True, 5e-2)])
 def test_pyramid_layer_matches(use_pallas, tol):
-    """use_pallas=True runs the JAX fused frame chain in interpret mode
-    with bf16 taps: bf16-tap tolerance."""
+    """The port module with the JAX module's `use_pallas`: True runs the
+    JAX fused frame chain in interpret mode and the port's trunk through
+    K2, both with bf16 taps, held at the bf16-tap tolerance of
+    tests/test_fused_conv.py."""
     rng = np.random.default_rng(8)
     P = 6
     x = rng.normal(size=(1, 8, 12, P)).astype(np.float32)
     jm, params = _pyramid_params(P, x, use_pallas)
     want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
-    m = _load(points.PyramidLayer(P, (16, 8, 4, 2)),
+    m = _load(points.PyramidLayer(P, (16, 8, 4, 2), use_pallas),
               "dense_encoder.point_based_pred1.pyramid.", params,
               lambda p: {"dense_encoder": {"point_based_pred1":
                                            {"pyramid": p}}})
@@ -291,8 +293,9 @@ def test_pyramid_layer_matches(use_pallas, tol):
 
 
 def test_pyramid_wide_last0_stays_plain(monkeypatch):
-    """A concat wider than 400 channels runs last0 as plain conv + LN."""
-    m = points.PyramidLayer(41, (4, 2, 2, 2)).eval()   # concat 5*82 = 410
+    """A concat wider than 400 channels runs last0 as plain conv + LN,
+    with the trunk fused (`use_pallas`)."""
+    m = points.PyramidLayer(41, (4, 2, 2, 2), use_pallas=True).eval()
     init_weights(m, 0)
     from gwdepth_tpu_torch.ops import fused_conv
     seen = []

@@ -292,7 +292,7 @@ def test_k2_backward_matches_jax_vjp(act, ci, co, with_ln, with_res):
     tx, tw = next(it), next(it)
     tg, tb = (next(it), next(it)) if with_ln else (None, None)
     tr = next(it) if with_res else None
-    got_y = port_fc.conv3x3_ln_act(tx, tw, tg, tb, tr, act)
+    got_y = port_fc.conv3x3_ln_act(tx, tw, tg, tb, tr, act, fast=False)
     assert got_y.grad_fn is not None
     np.testing.assert_allclose(got_y.detach().numpy(), np.asarray(y),
                                atol=2e-5, rtol=1e-4)
@@ -302,6 +302,31 @@ def test_k2_backward_matches_jax_vjp(act, ci, co, with_ln, with_res):
         scale = max(1.0, float(np.abs(e).max()))
         np.testing.assert_allclose(a.numpy(), e, rtol=0, atol=2e-5 * scale,
                                    err_msg=name)
+
+
+def test_k2_bf16_backward_matches_jax_fused_vjp():
+    """K2's Function with `fast=True` against `jax.vjp` of the JAX
+    package's `fused_conv_ln_act` (the Pallas kernel in interpret mode for
+    the forward, the recompute and dx; the dw einsums in XLA). Both round
+    x, w, the recomputed conv's cotangent dc and the flipped weights to
+    bf16 the same way, so they differ by float32 sum order only; gradients
+    at 1e-5 of the call's largest."""
+    from gwdepth_tpu.ops.fused_conv import fused_conv_ln_act
+
+    act = "gelu"
+    x, w, g, b, _, ct = _k2_case(30, 6, 10, B=1, H=4, W=5)
+    y, vjp = jax.vjp(lambda *a: fused_conv_ln_act(*a, act),
+                     *map(jnp.asarray, (x, w, g, b)))
+    want = vjp(jnp.asarray(ct))
+    tp = [_t(a).requires_grad_() for a in (x, w, g, b)]
+    got_y = port_fc.conv3x3_ln_act(*tp, None, act)
+    np.testing.assert_allclose(got_y.detach().numpy(), np.asarray(y),
+                               atol=1e-5, rtol=0)
+    got = torch.autograd.grad(got_y, tp, _t(ct))
+    scale = max(1.0, max(float(np.abs(np.asarray(e)).max()) for e in want))
+    for name, a, e in zip("xwgb", got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(e), rtol=0,
+                                   atol=1e-5 * scale, err_msg=name)
 
 
 def test_k2_backward_of_the_wide_dx_link_uses_split_pieces():

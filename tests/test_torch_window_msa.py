@@ -38,6 +38,21 @@ from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 TOL = 1e-5
 
 
+@pytest.fixture(scope="module")
+def jax_ref():
+    """The JAX references this module compiles, jitted once for all its
+    tests: the XLA `window_msa`, its VJP, and `_attention_xla_reference`."""
+
+    def msa_vjp(ct, *a):
+        y, vjp = jax.vjp(jswin.window_msa, *a)
+        return y, vjp(ct)
+
+    return {"window_msa": jax.jit(jswin.window_msa),
+            "window_msa_vjp": jax.jit(msa_vjp),
+            "attention": jax.jit(_attention_xla_reference,
+                                 static_argnums=7)}
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(np.asarray(x, np.float32)))
 
@@ -77,15 +92,15 @@ def test_window_msa_plain_matches_pallas_interpret(B, nW, H, N, hd,
     _close(wm.window_msa_kernel(*_pt(*args)), want)
 
 
-def test_window_msa_plain_matches_xla_over_130_windows():
+def test_window_msa_plain_matches_xla_over_130_windows(jax_ref):
     """Past the TPU kernel's 128-window lane chunk; held against the XLA
     formulation only (interpret mode is slow at this shape)."""
     args = _msa_inputs(1, 130, 4, 49, 4, True, 130)
     _close(wm.window_msa_plain(*_pt(*args)),
-           jax.jit(jswin.window_msa)(*_jnp(*args)))
+           jax_ref["window_msa"](*_jnp(*args)))
 
 
-def test_window_msa_use_pallas_flag_and_grads_match_jax():
+def test_window_msa_use_pallas_flag_and_grads_match_jax(jax_ref):
     """`swin.window_msa(use_pallas=True)` routes to K3 and equals the
     einsum/softmax path; K3's Function gives `jax.vjp`'s gradients of the
     XLA `window_msa` for q, k, v, bias and mask."""
@@ -96,13 +111,8 @@ def test_window_msa_use_pallas_flag_and_grads_match_jax():
     assert got.grad_fn is not None and got.dtype == torch.float32
     _close(got, swin.window_msa(*_pt(*args)))
     grads = torch.autograd.grad(got, leaves, _t(ct))
-
-    @jax.jit
-    def ref_vjp(ct, *a):
-        y, vjp = jax.vjp(jswin.window_msa, *a)
-        return y, vjp(ct)
-
-    want_y, want = ref_vjp(jnp.asarray(ct, jnp.float32), *_jnp(*args))
+    want_y, want = jax_ref["window_msa_vjp"](jnp.asarray(ct, jnp.float32),
+                                             *_jnp(*args))
     _close(got, want_y)
     scale = max(1.0, max(float(np.abs(np.asarray(w)).max()) for w in want))
     for name, g, w in zip(("q", "k", "v", "bias", "mask"), grads, want):
@@ -211,14 +221,18 @@ def test_layout_fence_is_identity(shape):
     assert torch.equal(g, ct)
 
 
-def test_slice_at_tiny_config_matches_model_and_jax(monkeypatch):
-    """Every window-attention site of one tiny-config forward of a port
-    GlassRGBD whose dense encoder (every window-attention site is there)
-    took its weights from a flax tree through the bridge: K3 on the
-    arguments of each `swin.window_msa` call, and the fused entry on the
-    input and mask of each `WindowClassAttention` with its weights, equal
-    the model's own results and the JAX package's XLA `window_msa` /
-    `_attention_xla_reference` on the same inputs."""
+@pytest.fixture(scope="module")
+def tiny_sites():
+    """One tiny-config forward of a port GlassRGBD whose dense encoder
+    (every window-attention site is there) took its weights from a flax
+    tree through the bridge, recording the arguments and result of each
+    `swin.window_msa` call and the module, input, mask and projection
+    output of each `WindowClassAttention`."""
+    with pytest.MonkeyPatch.context() as mp:
+        return _record_tiny_sites(mp)
+
+
+def _record_tiny_sites(monkeypatch):
     cfg = tiny_test_config()
     model = init_weights(GlassRGBD(cfg), 0).eval()
     sd = {k: v.numpy() for k, v in model.state_dict().items()}
@@ -244,6 +258,16 @@ def test_slice_at_tiny_config_matches_model_and_jax(monkeypatch):
     H, W = cfg.eval_hw
     with torch.no_grad():
         model(_t(np.random.default_rng(2).normal(size=(1, H, W, 3))))
+    return msa, cls
+
+
+def test_slice_at_tiny_config_matches_model_and_jax(tiny_sites, jax_ref):
+    """Every window-attention site of the tiny-config forward: K3 on the
+    arguments of each `swin.window_msa` call, and the fused entry on the
+    input and mask of each `WindowClassAttention` with its weights, equal
+    the model's own results and the JAX package's XLA `window_msa` /
+    `_attention_xla_reference` on the same inputs."""
+    msa, cls = tiny_sites
     assert {s[0].shape[-1] for s in msa} >= {1, 2, 4}    # head widths
     assert any(s[4] is not None for s in msa)           # shifted windows
     assert len(cls) == 3
@@ -251,8 +275,7 @@ def test_slice_at_tiny_config_matches_model_and_jax(monkeypatch):
     def np_(*ts):
         return [None if t is None else t.numpy() for t in ts]
 
-    jax_msa = jax.jit(jswin.window_msa)
-    jax_ref = jax.jit(_attention_xla_reference, static_argnums=7)
+    jax_msa = jax_ref["window_msa"]
     with torch.no_grad():
         for q, k, v, bias, mask, out in msa:
             got = wm.window_msa_kernel(q, k, v, bias, mask)
@@ -264,4 +287,4 @@ def test_slice_at_tiny_config_matches_model_and_jax(monkeypatch):
             got = wm.fused_window_attention(x, *w, mask, mod.num_heads)
             _close(got, out)
             jw = np_(x, w[0].T, w[1], w[2].T, w[3], w[4], mask)
-            _close(got, jax_ref(*_jnp(*jw), mod.num_heads))
+            _close(got, jax_ref["attention"](*_jnp(*jw), mod.num_heads))
