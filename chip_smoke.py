@@ -16,7 +16,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (conv2d + layer_norm + activation; K2's in bf16 on
               channels-last, and as before in float32 on contiguous NCHW,
               cuDNN autotuned) with CUDA events, medians of 30 runs after
-              warm-up;
+              warm-up, and device times of 10 calls in a CUDA graph;
   4. model    GlassRGBD(GWDepthConfig(dropout=0.0, use_pallas=True)) at
               768x1024, batch 1, weights from a seed (the repo holds no
               checkpoint): one forward on the card with the launch counts
@@ -24,7 +24,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               times, K2 25 times, K3 and K4 not at all),
               output shapes and finiteness, the median forward time, a
               torch.profiler breakdown of one forward's device time (by
-              kernel name, and the device's idle share), and the same
+              kernel name, and the device's idle share; each K1 call must
+              be one CUDA kernel), and the same
               forward on the CPU (the wrappers take the plain versions
               there) compared with the card's; then the same weights with
               use_pallas=False: no K1 or K2 launch, its median time, and
@@ -71,7 +72,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               sites (gradients against autograd through the plain
               version); K4 must launch once per fused call, K3 once per
               kernel or fused call; then kernel, plain, SDPA-library and
-              bound times per site.
+              bound times per site, and K4's device time per site beside
+              `Tensor.copy_`'s, with the profiler's name for what `copy_`
+              runs.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -284,6 +287,8 @@ def phase_k1(rng, dev):
            "kernel_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
            "plain_ms": time_ms(lambda: ref_attn_diffusion_plain(a, w, b)),
            "library_ms": time_ms(lambda: diffusion_torch(a, w, b)),
+           "device_ms": graph_ms(lambda: ref_attn_diffusion(a, w, b)),
+           "library_device_ms": graph_ms(lambda: diffusion_torch(a, w, b)),
            **bound_fields(flops, nbytes)}
     log(json.dumps(rec))
     return rec
@@ -366,7 +371,7 @@ def phase_k2(rng, dev):
 # model phase
 # ---------------------------------------------------------------------------
 
-_K1_NAMES = ("conv_stats_kernel", "norm_act_kernel")
+_K1_NAMES = ("diffusion_kernel",)
 _K2_NAMES = ("conv3x3_ln_act_kernel",)
 
 
@@ -401,12 +406,17 @@ def profile_device(fn, wall_ms: float, label: str, tag: str) -> dict:
         return sum(t for name, (t, _) in by_name.items()
                    if any(k in name for k in keys)) / 1e3
 
+    def count(keys):
+        return sum(n for name, (_, n) in by_name.items()
+                   if any(k in name for k in keys))
+
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
     rec = {label: wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "device_kernels": len(spans), "k1_ms": share(_K1_NAMES),
-           "k2_ms": share(_K2_NAMES),
+           "k1_kernels": count(_K1_NAMES), "k2_ms": share(_K2_NAMES),
+           "k2_kernels": count(_K2_NAMES),
            "top": [[name[:90], t / 1e3, n] for name, (t, n) in top]}
     log(f"[{tag}] " + json.dumps(rec))
     return rec
@@ -477,7 +487,10 @@ def phase_model(card: str):
     log(f"[model] forward bs1 {H_IMG}x{W_IMG}: median {fwd_ms:.3f} ms over "
         f"10 runs on {card}")
     with torch.no_grad():
-        profile_device(lambda: model(x), fwd_ms, "forward_ms", "profile")
+        prof = profile_device(lambda: model(x), fwd_ms, "forward_ms",
+                              "profile")
+    # every K1 call is one CUDA kernel: all three steps in one launch
+    assert not prof or prof["k1_kernels"] == K1_PER_FORWARD, prof
 
     t0 = time.perf_counter()
     with torch.no_grad():
@@ -770,6 +783,9 @@ def phase_backward(rng, dev):
                "kernel_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
                "plain_ms": time_ms(lambda: ref_attn_diffusion_plain(a, w, b)),
                "library_ms": time_ms(lambda: diffusion_torch(a, w, b)),
+               "device_ms": graph_ms(lambda: ref_attn_diffusion(a, w, b)),
+               "library_device_ms": graph_ms(
+                   lambda: diffusion_torch(a, w, b)),
                **bound_fields(3 * conv,
                               4 * (2 * a.numel() + 9 * Hh * Hh + Hh))}
     k1 = {"name": "K1", "shape": list(K1_TRAIN_SHAPE), "fwd": fwd,
@@ -1116,6 +1132,28 @@ def fence_bound(x) -> dict:
     return bound_fields(0, 2 * x.numel() * x.element_size())
 
 
+def device_kernel_names(fn) -> list:
+    """The CUDA kernels (and memcpy/memset) one call of `fn` runs, as the
+    profiler names them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def log_fence(tag, x, fence) -> None:
+    log(f"[window] K4 {tag} {list(x.shape)} ({fence['bytes_ms'] * 1e3:.2f} "
+        f"us bound): device us " + json.dumps(
+            {"kernel": fence["kernel_device_ms"] * 1e3,
+             "copy_": fence["library_device_ms"] * 1e3}))
+
+
 def sdpa_inputs(q, k, v, bias, mask):
     """q, k, v as contiguous (B*nW, H, N, hd) and the float attn_mask
     bias (+ mask) as a contiguous (B*nW, H, N, N) for
@@ -1191,6 +1229,10 @@ def phase_window_attention(rng):
     cts = [torch.from_numpy(rng.normal(size=tuple(c[1].shape))
                             .astype(np.float32)).to("cuda")
            for c in cls_train]
+    x0 = cls[0][1]
+    x0 = x0.reshape(-1, *x0.shape[2:])
+    log(f"[window] a class site's x: {list(x0.shape)}, strides "
+        f"{list(x0.stride())}")
 
     # the main path of this slice: counts zeroed just before, read after
     torch.cuda.synchronize()
@@ -1268,6 +1310,7 @@ def phase_window_attention(rng):
                 rec["plain_max_scaled_err"] <= K3_TOL, rec
             assert rec["fence"]["max_err"] == 0, "K4 is not the identity"
             log("[window] fused " + json.dumps(rec))
+            log_fence("serve", xf, rec["fence"])
             fused.append(rec)
 
     train_recs = []
@@ -1311,13 +1354,30 @@ def phase_window_attention(rng):
         rec["backward_ms"] = bwd_time_ms(y, leaves, ct)
         rec["backward_plain_ms"] = bwd_time_ms(y_plain, leaves, ct)
         log("[window] train " + json.dumps(rec))
+        log_fence("train", xf, rec["fence"])
         train_recs.append(rec)
     log(f"[window] phase 9 took {time.perf_counter() - t0:.1f} s")
     return {"k3_launches": n_k3, "k4_launches": n_k4, "sites": sites,
             "fused": fused, "train": train_recs}
 
 
-def window_kernel_entries(win, serve_n: dict, train_run: dict) -> list:
+def copy_kernel_names() -> list:
+    """What `Tensor.copy_`, K4's yardstick, runs on a view laid out as the
+    first serving class site's x (a channel slice, 256 of 384 floats a
+    row, of (70, 49) rows), as the profiler names it; run before the model
+    phases, whose profiles leave the profiler without device events later
+    in the process."""
+    x = torch.zeros(70, 49, 384, device="cuda")[..., :256]
+    dst = torch.empty(x.shape, device="cuda")
+    names = [n[:120] for n in device_kernel_names(lambda: dst.copy_(x))]
+    log("[kernels] copy_ of a (70, 49, 256) channel slice runs: "
+        + (json.dumps(names) if names
+           else "not measured (the profiler saw no device events)"))
+    return names
+
+
+def window_kernel_entries(win, serve_n: dict, train_run: dict,
+                          copy_kernels: list) -> list:
     """The `kernels` entries of K3 and K4 from phase 9's records, with the
     launches counted in the serving forward (`serve_n`) and the first
     main.main train run (`train_run`)."""
@@ -1381,6 +1441,7 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict) -> list:
          "bound_ms": total(fences, "bound_ms"), "bound_by": by(fences),
          "library_ms": total(fences, "library_ms"),
          **device_totals(fences),
+         "library_kernels": copy_kernels,
          "train_ms": total(train_fences, "kernel_ms"),
          "train_plain_ms": total(train_fences, "plain_ms"),
          "train_bound_ms": total(train_fences, "bound_ms"),
@@ -1396,6 +1457,7 @@ def main(argv=None) -> None:
     smi = probe()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
+    copy_kernels = copy_kernel_names()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
     with torch.no_grad():
@@ -1445,6 +1507,8 @@ def main(argv=None) -> None:
          "ms": k1_n * k1["kernel_ms"], "plain_ms": k1_n * k1["plain_ms"],
          "bound_ms": k1_n * k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1_n * k1["library_ms"],
+         "device_ms": k1_n * k1["device_ms"],
+         "library_device_ms": k1_n * k1["library_device_ms"],
          "train_launches": run["k1"],
          "train_launches_per_step": K1_PER_FORWARD,
          "train_ms": K1_PER_FORWARD * k1_train["fwd"]["kernel_ms"],
@@ -1452,6 +1516,9 @@ def main(argv=None) -> None:
          "train_bound_ms": K1_PER_FORWARD * k1_train["fwd"]["bound_ms"],
          "train_bound_by": k1_train["fwd"]["bound_by"],
          "train_library_ms": K1_PER_FORWARD * k1_train["fwd"]["library_ms"],
+         "train_device_ms": K1_PER_FORWARD * k1_train["fwd"]["device_ms"],
+         "train_library_device_ms":
+             K1_PER_FORWARD * k1_train["fwd"]["library_device_ms"],
          # no backward kernel: the backward is plain PyTorch
          "train_backward_max_scaled_err": k1_train["bwd"]["max_scaled_err"],
          "train_backward_ms": K1_PER_FORWARD * k1_train["bwd"]["backward_ms"],
@@ -1496,7 +1563,7 @@ def main(argv=None) -> None:
          "device_ms": train_bwd("kernel_device_ms"),
          "backward_ms": train_bwd("backward_ms"),
          "plain_convs_ms": train_bwd("plain_convs_ms")},
-        *window_kernel_entries(win, k34_n, run),
+        *window_kernel_entries(win, k34_n, run, copy_kernels),
     ]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
@@ -1511,8 +1578,9 @@ def main(argv=None) -> None:
         "the float32 F.conv2d on contiguous NCHW + F.layer_norm + act, both "
         "autotuned; K2's bound_ms = bf16 FLOPs at 989 TFLOP/s or float32 "
         "bytes at 3.35 TB/s, f32_bound_ms with float32 FLOPs at 67 "
-        "TFLOP/s; K2's device_ms / library_device_ms per call of 10 "
-        "calls in a CUDA graph (the backward's: its recompute and dx); "
+        "TFLOP/s; K1's and K2's device_ms / library_device_ms per call "
+        "of 10 calls in a CUDA graph (K2's backward: its recompute and "
+        "dx), times the launches per forward or step; "
         "the backward's max_abs_err is scaled by max(1, the "
         "call's largest reference gradient). "
         f"train step median {train['step_ms']:.3f} ms, host matcher "

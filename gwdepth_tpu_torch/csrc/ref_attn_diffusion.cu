@@ -14,50 +14,210 @@
 // Bound on the H100 (main path: B=1, P=980, R=40, H=16, float32): per call
 // 3 x 2*P*R*H*H*9 = 0.54 GFLOP of float32 FMA against 5 MB of input and
 // output, so the bound is the float32 CUDA-core rate (about 8 us at
-// 67 TFLOP/s), not memory (about 1.5 us at 3.35 TB/s).
+// 67 TFLOP/s), not memory (about 1.5 us at 3.35 TB/s). The products are
+// float32 on the CUDA cores, as the Pallas kernel multiplies at HIGHEST.
 //
-// Design. The TPU kernel kept the whole 2.5 MB plane in VMEM for all three
-// steps; a Hopper block cannot hold it, and the LayerNorm statistic spans
-// the whole plane, so each step needs a grid-wide reduction. Each step is
-// two launches (six per call):
-//   1. conv_stats: one block per tile of TP rows of P (all R, all heads).
-//      The tile plus its 1-row/1-column halo and the 9*H*H weights sit in
-//      shared memory (row stride H+1 words, so the 32 threads of a warp,
-//      one output position each, hit 32 different banks). Each thread
-//      computes all H outputs of its (p, r) position: every input value
-//      loaded feeds H FMAs and every weight read is a broadcast. The block
-//      writes `upd` and, for each head, its tile's (mean, M2), summed in a
-//      fixed order (warp shuffles, then warps in index order).
-//   2. norm_act: every block first combines all tiles' (mean, M2) for each
-//      head with Chan's parallel formula, in tile order (deterministic, and
-//      the variance is taken around the mean as the JAX kernel does), then
-//      normalizes, applies erff GELU and adds the residual for its tile.
-// The three steps ping-pong between the output and one scratch plane.
+// Design: all three steps in one cooperative launch. The TPU kernel kept
+// the whole 2.5 MB plane in VMEM; here the plane is spread over a
+// persistent grid of co-resident blocks (one per SM on the main path),
+// each owning a band of whole rows of one plane (`band_partition` in
+// ops/ref_attn_diffusion.py):
+//   - the band, with a 1-row halo above and below and a zero column on
+//     each side, and the 9*H*H weights stay in shared memory for all three
+//     steps (row strides padded so that the lanes of a warp read different
+//     banks);
+//   - the conv: KS threads share a group of PT positions, each summing the
+//     products of every KS-th input channel, so each broadcast float4 of
+//     weights feeds PT positions and the groups cover the band exactly (at
+//     B=1: 8 warps, 64 groups of 5 positions, KS = 4); the KS partial sums
+//     are then reduced and scattered by shuffles, each thread keeping H/KS
+//     output channels in registers;
+//   - the block writes its (mean, M2) per head, then a grid barrier; every
+//     block copies the partials of its plane into shared memory and
+//     combines them in a fixed order (the mean as the count-weighted sum
+//     of the block means, then M2 as the sum of each block's M2 and its
+//     count x its mean's square distance from the plane's), so the
+//     statistics are the same in every block and bit-equal from run to
+//     run;
+//   - it normalizes, applies erff GELU and adds the residual in shared
+//     memory, writes the band's first and last rows to `out`, and after a
+//     second grid barrier reads its neighbours' rows as the next halo.
+//     Device memory sees the plane only at the first read, the halo rows
+//     and the final write, each by whole rows in 16-byte words.
+// The grid barrier is one counter in device memory that every barrier
+// advances by a fixed 1024 whatever the grid (each block adds 1 without
+// waiting, block 0 the rest), so it needs no reset and survives CUDA-graph
+// capture and replay. The launch is cooperative, so the runtime refuses a
+// grid that cannot be co-resident instead of deadlocking.
 // CUDA's erff is used where the TPU kernel needed the A&S 7.1.26 rational
 // approximation (Mosaic had no erf).
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+constexpr int kMaxThreads = 256;
+constexpr int kSmemMax = 232448;  // a block's shared memory on an H100
+// the grid barrier's counter advances by exactly kEpisode per barrier
+// (kEpisode >= any grid, a power of two, so the count stays aligned across
+// launches of any grid and across wrap-around)
+constexpr unsigned kEpisode = 1024;
+
+// The (H, KS, PT) instances built, the one list of them
+// (ops/ref_attn_diffusion.py reads it from here): PT * H <= 128 sums in
+// registers; KS = 4 (and 2 for wide bands) at H = 16 and 32, the main
+// path's widths; powers of two of PT for the narrow heads, which no
+// main-path call takes.
+#define GW_K1_INSTANCES(X)                                                  \
+  X(2, 1, 1) X(2, 1, 2) X(2, 1, 4) X(2, 1, 8)                               \
+  X(4, 1, 1) X(4, 1, 2) X(4, 1, 4) X(4, 1, 8)                               \
+  X(8, 2, 1) X(8, 2, 2) X(8, 2, 4) X(8, 2, 8)                               \
+  X(16, 4, 1) X(16, 4, 2) X(16, 4, 3) X(16, 4, 4) X(16, 4, 5) X(16, 4, 6)   \
+  X(16, 4, 8) X(16, 2, 5) X(16, 2, 6) X(16, 2, 8)                           \
+  X(32, 4, 1) X(32, 4, 2) X(32, 4, 3) X(32, 4, 4) X(32, 2, 3) X(32, 2, 4)
+
+// rows [j P / nbp, (j+1) P / nbp) of a plane's block j
+// (`band_partition` in ops/ref_attn_diffusion.py mirrors it; P * nbp <
+// 2^31)
+__device__ __forceinline__ int band_start(int j, int nbp, int P) {
+  return j * P / nbp;
 }
 
-// Sums v[0..H) over the block; lane 0 of each warp parks its warp's sums in
-// `red` and the first H threads add the warps up in index order.
+// The counter's episode when the block starts: no barrier of this launch
+// can end before this block arrives, so the counter is below the end of
+// the launch's first episode.
+__device__ __forceinline__ unsigned episode_base(const unsigned* bar) {
+  unsigned now;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+               : "=r"(now) : "l"(bar) : "memory");
+  return now - now % kEpisode;
+}
+
+__device__ __forceinline__ unsigned dynamic_smem_size() {
+  unsigned r;
+  asm("mov.u32 %0, %%dynamic_smem_size;" : "=r"(r));
+  return r;
+}
+
+// All blocks of the grid. Each block adds 1 to the counter without waiting
+// for the result, block 0 adds kEpisode - nblocks more, and every block
+// waits for the counter to reach the episode's end `end`. Nothing is reset,
+// so the barrier needs no per-launch state and survives CUDA-graph replay.
+__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned end,
+                                             unsigned nblocks) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 1 + kEpisode - nblocks : 1;
+    asm volatile("red.release.gpu.global.add.u32 [%0], %1;"
+                 :: "l"(bar), "r"(add) : "memory");
+    unsigned now;
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];"
+                   : "=r"(now) : "l"(bar) : "memory");
+    } while ((int)(now - end) < 0);
+  }
+  __syncthreads();
+}
+
+// dst[i] = src[i] for i < n, the loads of U iterations issued before their
+// stores (global src; `cg`: read around L1)
+template <typename V, int U, bool cg>
+__device__ __forceinline__ void batched_copy(V* dst, const V* src, int n) {
+  const int T = blockDim.x;
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * T) {
+    V v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * T < n) v[u] = cg ? __ldcg(src + i0 + u * T)
+                                    : __ldg(src + i0 + u * T);
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      if (i0 + u * T < n) dst[i0 + u * T] = v[u];
+  }
+}
+
+// Sums over the block's threads of each head's lane sums: thread t = l H +
+// h (L = T / H lanes a head) parks v in part[t], and thread h < H adds
+// its head's L lanes in order.
+__device__ __forceinline__ float head_sum(float v, float* part, int H) {
+  const int t = threadIdx.x, L = blockDim.x / H;
+  part[t] = v;
+  __syncthreads();
+  float s = 0.f;
+  if (t < H)
+    for (int l = 0; l < L; ++l) s += part[l * H + t];
+  return s;
+}
+
+__device__ __forceinline__ float gelu(float u) {
+  return 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
+}
+
 template <int H>
-__device__ __forceinline__ void block_sums(const float (&v)[H], float* red,
-                                           float* out_h) {
+using Vec = typename std::conditional<(H >= 4), float4, float2>::type;
+
+// Copies nrows whole plane rows starting at `g` (contiguous, R * H floats
+// each) into tile rows pp0.. of row stride HS (or back, `out`), the vector
+// loads of U iterations issued before their shared-memory stores. `cg`:
+// read around L1, for rows other blocks wrote in this launch.
+template <int H, int HS, bool out, bool cg>
+__device__ __forceinline__ void rows_io(float* tile, int pp0, float* g,
+                                        int nrows, int R) {
+  constexpr int V = H >= 4 ? 4 : 2, U = 8;
+  const int per_row = R * H / V, n = nrows * per_row;
+  const int T = blockDim.x, R2 = R + 2;
+  Vec<H>* gv = reinterpret_cast<Vec<H>*>(g);
+  for (int i0 = threadIdx.x; i0 < n; i0 += U * T) {
+    Vec<H> v[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * T;
+      if (i >= n) break;
+      const int row = i / per_row, e = (i - row * per_row) * V;
+      float* c = tile + ((pp0 + row) * R2 + e / H + 1) * HS + e % H;
+      if (out) {
+        float* f = reinterpret_cast<float*>(&v[u]);
+#pragma unroll
+        for (int k = 0; k < V; ++k) f[k] = c[k];
+        gv[i] = v[u];
+      } else {
+        v[u] = cg ? __ldcg(gv + i) : __ldg(gv + i);
+      }
+    }
+    if (out) continue;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int i = i0 + u * T;
+      if (i >= n) break;
+      const int row = i / per_row, e = (i - row * per_row) * V;
+      float* c = tile + ((pp0 + row) * R2 + e / H + 1) * HS + e % H;
+      const float* f = reinterpret_cast<const float*>(&v[u]);
+#pragma unroll
+      for (int k = 0; k < V; ++k) c[k] = f[k];
+    }
+  }
+}
+
+// Sums v[0..HK) of the lanes that share a lane mod KS over the block:
+// outputs ks * HK .. of out_h[0..H). Within a warp xor shuffles over the
+// lanes of one ks; lane ks parks the warp's sums in `red`; the first H
+// threads add the warps up in index order.
+template <int H, int KS>
+__device__ __forceinline__ void block_sums(const float (&v)[H / KS],
+                                           float* red, float* out_h) {
+  constexpr int HK = H / KS;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
 #pragma unroll
-  for (int o = 0; o < H; ++o) {
-    const float s = warp_sum(v[o]);
-    if (lane == 0) red[warp * H + o] = s;
+  for (int j = 0; j < HK; ++j) {
+    float s = v[j];
+#pragma unroll
+    for (int off = 16; off >= KS; off >>= 1)
+      s += __shfl_xor_sync(0xffffffffu, s, off);
+    if (lane < KS) red[warp * H + lane * HK + j] = s;
   }
   __syncthreads();
   if (threadIdx.x < H) {
@@ -68,161 +228,359 @@ __device__ __forceinline__ void block_sums(const float (&v)[H], float* red,
   __syncthreads();
 }
 
-template <int H>
-__global__ void conv_stats_kernel(const float* __restrict__ a,
-                                  const float* __restrict__ w,
-                                  const float* __restrict__ bias,
-                                  float* __restrict__ upd,
-                                  float2* __restrict__ stats,
-                                  int P, int R, int TP, int nT) {
-  constexpr int HS = H + 1;
-  extern __shared__ float smem[];
-  __shared__ float sums[H], m2s[H];
+// One level of the reduce-scatter of the KS lanes' partial sums: of the
+// first N sums a lane keeps the upper half (`upper`) or the lower, at
+// [0, N / 2), and adds its partner's (lane xor m) copy of them.
+template <int PT, int H, int N>
+__device__ __forceinline__ void keep_half(float (&acc)[PT][H], bool upper,
+                                          int m) {
+#pragma unroll
+  for (int k = 0; k < PT; ++k)
+#pragma unroll
+    for (int j = 0; j < N / 2; ++j) {
+      const float send = upper ? acc[k][j] : acc[k][j + N / 2];
+      const float keep = upper ? acc[k][j + N / 2] : acc[k][j];
+      acc[k][j] = keep + __shfl_xor_sync(0xffffffffu, send, m);
+    }
+}
+
+// Each block: a band of whole rows of one plane, with KS threads on each
+// group of PT positions (positions g, g + T/KS, ...; thread t is lane
+// t mod KS of group t / KS), each thread summing the products of the input
+// channels i = ks, ks + KS, ...; the groups' partial sums are then reduced
+// and scattered so that each thread keeps H / KS output channels.
+template <int H, int PT, int KS>
+__global__ void __launch_bounds__(kMaxThreads)
+diffusion_kernel(const float* __restrict__ a, float* __restrict__ out,
+                 const float* __restrict__ w, const float* __restrict__ bias,
+                 float2* __restrict__ stats, unsigned* __restrict__ bar,
+                 int P, int R, int nbp, int rows_max) {
+  // tile row stride H + KS and weight row stride H + 4: the KS lanes of a
+  // group and the groups of a warp read different banks
+  constexpr int HS = H + KS, WS = H + 4, HK = H / KS;
+  constexpr int V = H >= 4 ? 4 : 2;
+  extern __shared__ __align__(16) float smem[];
+  const int T = blockDim.x, t = threadIdx.x;
   const int R2 = R + 2;
-  float* tile = smem;                           // (TP+2) * R2 * HS
-  float* ws = tile + (TP + 2) * R2 * HS;        // 9 * H * H
-  float* red = ws + 9 * H * H;                  // (blockDim/32) * H
+  float* ws = smem;                                        // 9 * H * WS
+  float2* pst = reinterpret_cast<float2*>(ws + 9 * H * WS);  // nbp * H
+  float* cnt = reinterpret_cast<float*>(pst + nbp * H);    // nbp
+  float* tile = cnt + nbp;                                 // (rows_max+2)*R2*HS
+  float* red = tile + (rows_max + 2) * R2 * HS;            // (T / 32) * H
+  float* part = red + (T / 32) * H;                        // T
+  float* sums = part + T;                                  // H
+  float* m2s = sums + H;                                   // H
+  float* mean_s = m2s + H;                                 // H
+  float* inv_s = mean_s + H;                               // H
+  // the carve-up above is `band_partition`'s sum of shared-memory bytes
+  if ((size_t)(reinterpret_cast<char*>(inv_s + H) -
+               reinterpret_cast<char*>(smem)) > dynamic_smem_size())
+    __trap();
 
-  const int t = blockIdx.x, b = blockIdx.y;
-  const int p0 = t * TP;
-  const int rows = min(TP, P - p0);
-  const float* ab = a + (size_t)b * P * R * H;
+  unsigned episode = episode_base(bar);
+  const int b = blockIdx.x / nbp, jb = blockIdx.x % nbp;
+  const int p0 = band_start(jb, nbp, P);
+  const int rows = band_start(jb + 1, nbp, P) - p0;
+  const size_t plane = (size_t)P * R * H;
+  const float* ab = a + b * plane;
+  float* ob = out + b * plane;
+  const bool up = p0 > 0, down = p0 + rows < P;
 
-  const int ntile = (TP + 2) * R2 * H;
-  for (int i = threadIdx.x; i < ntile; i += blockDim.x) {
-    const int h = i % H, rest = i / H;
-    const int rr = rest % R2, pp = rest / R2;
-    const int p = p0 - 1 + pp, r = rr - 1;
-    float v = 0.f;
-    if (p >= 0 && p < P && r >= 0 && r < R) v = ab[((size_t)p * R + r) * H + h];
-    tile[(pp * R2 + rr) * HS + h] = v;
-  }
-  for (int i = threadIdx.x; i < 9 * H * H; i += blockDim.x) ws[i] = w[i];
-  __syncthreads();
-
-  const int pos = threadIdx.x;
-  const int pl = pos / R, r = pos % R;
-  const bool valid = pos < TP * R && pl < rows;
-  float acc[H];
+  // the weights, rows (tap, i) padded to WS, loads issued in batches
+  {
+    const Vec<H>* wv = reinterpret_cast<const Vec<H>*>(w);
+    constexpr int per_row = H / V, U = 4;
+    const int n = 9 * H * per_row;
+    for (int i0 = t; i0 < n; i0 += U * T) {
+      Vec<H> v[U];
 #pragma unroll
-  for (int o = 0; o < H; ++o) acc[o] = valid ? bias[o] : 0.f;
-  if (valid) {
-    for (int dy = 0; dy < 3; ++dy) {
-      for (int dx = 0; dx < 3; ++dx) {
-        const float* src = tile + ((pl + dy) * R2 + r + dx) * HS;
-        const float* wt = ws + (dy * 3 + dx) * H * H;
+      for (int u = 0; u < U; ++u)
+        if (i0 + u * T < n) v[u] = __ldg(wv + i0 + u * T);
 #pragma unroll
-        for (int i = 0; i < H; ++i) {
-          const float v = src[i];
-#pragma unroll
-          for (int o = 0; o < H; ++o) acc[o] = fmaf(v, wt[i * H + o], acc[o]);
-        }
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * T;
+        if (i < n)
+          *reinterpret_cast<Vec<H>*>(ws + (i / per_row) * WS +
+                                     (i % per_row) * V) = v[u];
       }
     }
-    float* dst = upd + (((size_t)b * P + p0 + pl) * R + r) * H;
-#pragma unroll
-    for (int o = 0; o < H; ++o) dst[o] = acc[o];
   }
-
-  // tile statistics per head: mean, then M2 around that mean
-  const float n = (float)(rows * R);
-  block_sums<H>(acc, red, sums);
-  float d2[H];
-#pragma unroll
-  for (int o = 0; o < H; ++o) {
-    const float d = valid ? acc[o] - sums[o] / n : 0.f;
-    d2[o] = d * d;
-  }
-  block_sums<H>(d2, red, m2s);
-  if (threadIdx.x < H) {
-    stats[((size_t)b * nT + t) * H + threadIdx.x] =
-        make_float2(sums[threadIdx.x] / n, m2s[threadIdx.x]);
-  }
-}
-
-template <int H>
-__global__ void norm_act_kernel(const float* __restrict__ a,
-                                const float* __restrict__ upd,
-                                const float2* __restrict__ stats,
-                                float* __restrict__ out,
-                                int P, int R, int TP, int nT) {
-  __shared__ float mean_s[H], inv_s[H];
-  const int t = blockIdx.x, b = blockIdx.y;
-  if (threadIdx.x < H) {
-    const int h = threadIdx.x;
-    float n = 0.f, mean = 0.f, m2 = 0.f;
-    for (int k = 0; k < nT; ++k) {
-      const float nb = (float)(min(TP, P - k * TP) * R);
-      const float2 s = stats[((size_t)b * nT + k) * H + h];
-      const float tot = n + nb;
-      const float delta = s.x - mean;
-      mean += delta * (nb / tot);
-      m2 += s.y + delta * delta * (n * nb / tot);
-      n = tot;
-    }
-    mean_s[h] = mean;
-    inv_s[h] = 1.0f / sqrtf(m2 / n + 1e-5f);
-  }
+  // zeros around the band (side columns, rows outside the plane), then
+  // the band and its halo rows
+  for (int i = t; i < (rows + 2) * R2 * HS; i += T) tile[i] = 0.f;
+  for (int j = t; j < nbp; j += T)
+    cnt[j] = (float)((band_start(j + 1, nbp, P) - band_start(j, nbp, P)) * R);
+  __syncthreads();
+  rows_io<H, HS, false, false>(
+      tile, up ? 0 : 1, const_cast<float*>(ab) + (size_t)(p0 - up) * R * H,
+      rows + up + down, R);
   __syncthreads();
 
-  const int p0 = t * TP;
-  const int rows = min(TP, P - p0);
-  const size_t base = ((size_t)b * P + p0) * R * H;
-  const int cnt = rows * R * H;
-  for (int i = threadIdx.x; i < cnt; i += blockDim.x) {
-    const int h = i % H;
-    const float u = (upd[base + i] - mean_s[h]) * inv_s[h];
-    const float g = 0.5f * u * (1.0f + erff(u * 0.70710678118654752f));
-    out[base + i] = a[base + i] + g;
+  // this thread's positions q = g + k NG of the band's rows * R, its input
+  // channels ks, ks + KS, ... and, after the reduction, its outputs
+  // ks * HK ..
+  const int ks = t % KS, g = t / KS, NG = T / KS;
+  const int npos = rows * R;
+  int base[PT];            // tile offset of the 3x3 window's top-left
+  bool valid[PT];
+#pragma unroll
+  for (int k = 0; k < PT; ++k) {
+    const int q = g + k * NG;
+    valid[k] = q < npos;
+    const int qq = valid[k] ? q : 0;
+    base[k] = ((qq / R) * R2 + qq % R) * HS;
   }
+  const float n_blk = (float)npos, inv_blk = 1.0f / n_blk;
+  const float n_plane = (float)P * R;
+  const int L = T / H, h_c = t % H, l_c = t / H;
+  float bias_k[HK];
+#pragma unroll
+  for (int j = 0; j < HK; ++j) bias_k[j] = bias[ks * HK + j];
+
+  float acc[PT][H];
+  for (int step = 0; step < 3; ++step) {
+    // 3x3 conv from shared memory: this thread's input channels
+#pragma unroll
+    for (int k = 0; k < PT; ++k)
+#pragma unroll
+      for (int o = 0; o < H; ++o) acc[k][o] = 0.f;
+    for (int tap = 0; tap < 9; ++tap) {
+      const float* src = tile + ((tap / 3) * R2 + tap % 3) * HS + ks;
+      const float* wt = ws + (tap * H + ks) * WS;
+#pragma unroll
+      for (int ii = 0; ii < HK; ++ii) {
+        float v[PT];
+#pragma unroll
+        for (int k = 0; k < PT; ++k) v[k] = src[base[k] + ii * KS];
+        float wr[H];
+        if constexpr (H % 4 == 0) {
+#pragma unroll
+          for (int o = 0; o < H; o += 4) {
+            const float4 q =
+                *reinterpret_cast<const float4*>(wt + ii * KS * WS + o);
+            wr[o] = q.x; wr[o + 1] = q.y; wr[o + 2] = q.z; wr[o + 3] = q.w;
+          }
+        } else {
+#pragma unroll
+          for (int o = 0; o < H; ++o) wr[o] = wt[ii * KS * WS + o];
+        }
+#pragma unroll
+        for (int k = 0; k < PT; ++k)
+#pragma unroll
+          for (int o = 0; o < H; ++o) acc[k][o] = fmaf(v[k], wr[o], acc[k][o]);
+      }
+    }
+    // the KS lanes' partial sums: at each xor distance a lane keeps half
+    // of its outputs and adds its partner's copy of them; then + bias
+    if constexpr (KS == 4) {
+      keep_half<PT, H, H>(acc, ks & 2, 2);
+      keep_half<PT, H, H / 2>(acc, ks & 1, 1);
+    } else if constexpr (KS == 2) {
+      keep_half<PT, H, H>(acc, ks & 1, 1);
+    }
+#pragma unroll
+    for (int k = 0; k < PT; ++k)
+#pragma unroll
+      for (int j = 0; j < HK; ++j) acc[k][j] += bias_k[j];
+
+    // the band's mean, then M2 around it, per head
+    float s[HK];
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      s[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < PT; ++k) s[j] += valid[k] ? acc[k][j] : 0.f;
+    }
+    block_sums<H, KS>(s, red, sums);
+#pragma unroll
+    for (int j = 0; j < HK; ++j) {
+      const float m = sums[ks * HK + j] * inv_blk;
+      s[j] = 0.f;
+#pragma unroll
+      for (int k = 0; k < PT; ++k) {
+        const float d = valid[k] ? acc[k][j] - m : 0.f;
+        s[j] = fmaf(d, d, s[j]);
+      }
+    }
+    block_sums<H, KS>(s, red, m2s);
+    if (t < H)
+      stats[(size_t)blockIdx.x * H + t] = make_float2(sums[t] * inv_blk, m2s[t]);
+    grid_barrier(bar, episode += kEpisode, gridDim.x);
+
+    // the plane's statistics from its blocks' (mean, M2), the same fixed
+    // order in every block: the mean as the count-weighted sum of the
+    // block means, then M2 as the sum of each block's M2 and its count x
+    // (block mean - mean)^2; each head's L lanes (threads h, h + H, ...)
+    // take every L-th block, then the lanes are added in order
+    batched_copy<float2, 8, true>(pst, stats + (size_t)(b * nbp) * H,
+                                  nbp * H);
+    __syncthreads();
+    {
+      float acc_s = 0.f;
+#pragma unroll 4
+      for (int j = l_c; j < nbp; j += L)
+        acc_s = fmaf(cnt[j], pst[j * H + h_c].x, acc_s);
+      const float tot = head_sum(acc_s, part, H);
+      if (t < H) mean_s[t] = tot / n_plane;
+      __syncthreads();
+      const float m = mean_s[h_c];
+      acc_s = 0.f;
+#pragma unroll 4
+      for (int j = l_c; j < nbp; j += L) {
+        const float2 st = pst[j * H + h_c];
+        const float d = st.x - m;
+        acc_s += fmaf(cnt[j] * d, d, st.y);
+      }
+      const float m2 = head_sum(acc_s, part, H);
+      if (t < H) inv_s[t] = 1.0f / sqrtf(m2 / n_plane + 1e-5f);
+      __syncthreads();
+    }
+
+    // normalize, GELU, residual on this thread's outputs of its positions;
+    // each value is read and written by its own thread only (every
+    // thread's conv ended before the barrier). The statistics and old
+    // values are read into registers first and the new values stored
+    // after, so no shared-memory store orders the loads behind it.
+    {
+      float mu[HK], iv[HK];
+#pragma unroll
+      for (int j = 0; j < HK; ++j) {
+        mu[j] = mean_s[ks * HK + j];
+        iv[j] = inv_s[ks * HK + j];
+      }
+#pragma unroll
+      for (int k = 0; k < PT; ++k) {
+        const float* c = tile + base[k] + (R2 + 1) * HS + ks * HK;
+#pragma unroll
+        for (int j = 0; j < HK; ++j)
+          acc[k][j] = c[j] + gelu((acc[k][j] - mu[j]) * iv[j]);
+      }
+#pragma unroll
+      for (int k = 0; k < PT; ++k) {
+        if (!valid[k]) continue;
+        float* c = tile + base[k] + (R2 + 1) * HS + ks * HK;
+#pragma unroll
+        for (int j = 0; j < HK; ++j) c[j] = acc[k][j];
+      }
+    }
+    __syncthreads();
+    if (step == 2) break;
+
+    // publish the band's edge rows, then take the neighbours' as the halo
+    if (up)
+      rows_io<H, HS, true, false>(tile, 1, ob + (size_t)p0 * R * H, 1, R);
+    if (down)
+      rows_io<H, HS, true, false>(tile, rows,
+                                  ob + (size_t)(p0 + rows - 1) * R * H, 1, R);
+    grid_barrier(bar, episode += kEpisode, gridDim.x);
+    if (up)
+      rows_io<H, HS, false, true>(tile, 0, ob + (size_t)(p0 - 1) * R * H, 1,
+                                  R);
+    if (down)
+      rows_io<H, HS, false, true>(tile, rows + 1,
+                                  ob + (size_t)(p0 + rows) * R * H, 1, R);
+    __syncthreads();
+  }
+
+  rows_io<H, HS, true, false>(tile, 1, ob + (size_t)p0 * R * H, rows, R);
 }
 
-template <int H>
-int run(const float* a, float* out, float* tmp, float* upd, float2* stats,
-        const float* w, const float* bias, int B, int P, int R, int TP,
-        cudaStream_t stream) {
-  const int nT = (P + TP - 1) / TP;
-  const int threads = ((TP * R + 31) / 32) * 32;
-  if (threads > 1024) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) *
-      ((size_t)(TP + 2) * (R + 2) * (H + 1) + 9 * H * H + (threads / 32) * H);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        conv_stats_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid(nT, B);
-  const float* src = a;
-  for (int step = 0; step < 3; ++step) {
-    float* dst = (step == 1) ? tmp : out;
-    conv_stats_kernel<H><<<grid, threads, smem, stream>>>(
-        src, w, bias, upd, stats, P, R, TP, nT);
-    norm_act_kernel<H><<<grid, 256, 0, stream>>>(src, upd, stats, dst, P, R,
-                                                 TP, nT);
-    src = dst;
-  }
+// Blocks of `kern` (threads, smem) that the whole card holds at once, with
+// the kernel's dynamic shared-memory limit raised to the most a block may
+// use; cached per (device, kernel, threads, smem), as the host path runs
+// on every call.
+int resident_blocks(const void* kern, int threads, size_t smem, int* out) {
+  struct Entry {
+    const void* kern;
+    int dev, threads;
+    size_t smem;
+    int blocks;
+  };
+  static Entry cache[64];
+  static int used = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  for (int i = 0; i < used; ++i)
+    if (cache[i].kern == kern && cache[i].dev == dev &&
+        cache[i].threads == threads && cache[i].smem == smem) {
+      *out = cache[i].blocks;
+      return 0;
+    }
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           kSmemMax);
+  if (e != cudaSuccess) return (int)e;
+  int sms = 0, per_sm = 0;
+  e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+                                                    smem);
+  if (e != cudaSuccess) return (int)e;
+  *out = sms * per_sm;
+  if (used < 64) cache[used++] = {kern, dev, threads, smem, *out};
+  return 0;
+}
+
+template <int H, int PT, int KS>
+int run(const float* a, float* out, const float* w, const float* bias,
+        float2* stats, unsigned* bar, int B, int P, int R, int nbp,
+        int rows_max, int threads, size_t smem, cudaStream_t stream) {
+  auto kern = diffusion_kernel<H, PT, KS>;
+  // every block must be resident at once: the grid barrier waits for all
+  int resident = 0;
+  cudaError_t e = (cudaError_t)resident_blocks((const void*)kern, threads,
+                                               smem, &resident);
+  if (e != cudaSuccess) return (int)e;
+  const int grid = B * nbp;
+  if (grid > resident) return (int)cudaErrorCooperativeLaunchTooLarge;
+
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kern, a, out, w, bias, stats, bar, P, R, nbp,
+                         rows_max);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// a, out, tmp, upd: (B, P, R, H) float32, contiguous; stats: B * nT * H
-// float2 with nT = ceil(P / TP); w: (3, 3, H, H) HWIO; bias: (H,).
-// TP * R <= 1024. Returns cudaGetLastError() after the six launches.
-extern "C" int gw_ref_attn_diffusion(const float* a, float* out, float* tmp,
-                                     float* upd, float* stats,
+// a, out: (B, P, R, H) float32, contiguous, not overlapping; w: (3, 3, H, H)
+// HWIO; bias: (H,); stats: B * nbp * H float2 of scratch; bar: the grid
+// barrier's counter, one unsigned word of device memory, zero before its
+// first call, that no launch running at the same time uses. One
+// cooperative launch of B * nbp <= 1024 blocks of `threads` threads (a
+// multiple of 32, at most 256) and smem bytes of shared memory (at least
+// the kernel's carve-up: `band_partition` in ops/ref_attn_diffusion.py),
+// each block owning at most rows_max rows, KS threads on each group of PT
+// positions ((threads / KS) * PT >= rows_max * R; (H, KS, PT) one of
+// GW_K1_INSTANCES). Returns the launch's error, or cudaGetLastError()
+// after it.
+extern "C" int gw_ref_attn_diffusion(const float* a, float* out,
+                                     float* stats, unsigned* bar,
                                      const float* w, const float* bias,
-                                     int B, int P, int R, int H, int TP,
-                                     void* stream) {
+                                     int B, int P, int R, int H, int nbp,
+                                     int rows_max, int threads, int KS,
+                                     int PT, long long smem, void* stream) {
+  if (threads % 32 != 0 || threads > kMaxThreads || KS < 1 ||
+      threads / KS * PT < rows_max * R || B * nbp > (int)kEpisode ||
+      (long long)P * (nbp + 1) >= (1LL << 31) || smem <= 0 ||
+      smem > kSmemMax)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float2* st = reinterpret_cast<float2*>(stats);
-  switch (H) {
-    case 2: return run<2>(a, out, tmp, upd, st, w, bias, B, P, R, TP, s);
-    case 4: return run<4>(a, out, tmp, upd, st, w, bias, B, P, R, TP, s);
-    case 8: return run<8>(a, out, tmp, upd, st, w, bias, B, P, R, TP, s);
-    case 16: return run<16>(a, out, tmp, upd, st, w, bias, B, P, R, TP, s);
-    case 32: return run<32>(a, out, tmp, upd, st, w, bias, B, P, R, TP, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+#define GW_K1_RUN(h, ks, pt)                                                \
+  if (H == h && KS == ks && PT == pt)                                       \
+    return run<h, pt, ks>(a, out, w, bias, st, bar, B, P, R, nbp, rows_max, \
+                          threads, (size_t)smem, s);
+  GW_K1_INSTANCES(GW_K1_RUN)
+#undef GW_K1_RUN
+  return (int)cudaErrorInvalidValue;
 }

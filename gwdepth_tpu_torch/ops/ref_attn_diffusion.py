@@ -8,7 +8,9 @@ exact GELU, residual add.
 
 A CUDA tensor launches the hand-written kernel
 `csrc/ref_attn_diffusion.cu` (it replaces the Pallas TPU kernel
-`gwdepth_tpu/ops/pallas_kernels.py:ref_attn_diffusion_pallas`); a CPU
+`gwdepth_tpu/ops/pallas_kernels.py:ref_attn_diffusion_pallas`): all three
+steps in one cooperative launch of a persistent grid, each block holding a
+band of rows of one plane (`band_partition`) in shared memory. A CPU
 tensor takes `ref_attn_diffusion_plain`. Nothing falls back: a CUDA
 tensor the kernel cannot take raises.
 
@@ -28,6 +30,10 @@ config's dtype: full float32 for the shipped config
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import re
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -65,14 +71,117 @@ def ref_attn_diffusion_plain(a: torch.Tensor, w: torch.Tensor,
     return a.to(dtype)
 
 
-def tile_rows(P: int, R: int) -> int:
-    """Rows of P one conv block owns: one thread per (row, r) position."""
-    if R > 1024:
-        raise ValueError(f"ref_attn_diffusion kernel takes R <= 1024, got {R}")
-    return max(1, min(P, 256 // R))
+# shared memory a block can use on an H100 (232,448 bytes) and the
+# kernel's block: 8 warps, two per scheduler of the SM, which hides the
+# latency of the steps between the convs
+SMEM_MAX = 232448
+THREADS_MAX = 256
+_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / \
+    "ref_attn_diffusion.cu"
 
 
-def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=1)
+def _instances() -> tuple:
+    """The (H, KS, PT) the kernel is built for: the `GW_K1_INSTANCES` list
+    of the CUDA source, read from there so that it is written once."""
+    src = _SOURCE.read_text()
+    body = src[src.index("#define GW_K1_INSTANCES(X)"):]
+    body = body[:body.index("\n\n")]
+    return tuple(tuple(int(v) for v in m)
+                 for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", body))
+
+
+def kernel_configs(H: int) -> tuple:
+    """The (KS, PT) built at H heads, KS threads on each group of PT
+    positions: widest KS first, then PT ascending."""
+    return tuple(sorted(((ks, pt) for h, ks, pt in _instances() if h == H),
+                        key=lambda c: (-c[0], c[1])))
+
+
+@dataclasses.dataclass(frozen=True)
+class BandPlan:
+    """How the kernel's persistent grid splits the planes: `nbp` blocks per
+    plane, block k owning rows `bands[k] = (b, p0, rows)`; `threads`
+    threads, `ks` of them on each group of `pt` positions; `smem` bytes of
+    shared memory a block."""
+    nbp: int
+    bands: tuple
+    rows_max: int
+    threads: int
+    ks: int
+    pt: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=64)
+def band_partition(B: int, P: int, R: int, H: int, sms: int) -> BandPlan:
+    """The kernel's partition of B planes of P rows over `sms` SMs, one
+    block of up to THREADS_MAX threads each (cached: the wrapper asks for
+    every call): every plane gets the same number of blocks (at most P, so
+    no band is empty), each block a contiguous band of whole rows of one
+    plane, the bands of a plane differing by at most one row (block j of a
+    plane starts at row j * P // nbp, as `band_start` in the CUDA source).
+    `smem` is the kernel's carve-up of shared memory, which the launch
+    passes on. Raises ValueError when a band does not fit in one block's
+    shared memory or threads."""
+    nbp = max(1, min(P, sms // B))
+    starts = [j * P // nbp for j in range(nbp + 1)]
+    bands = tuple((b, starts[j], starts[j + 1] - starts[j])
+                  for b in range(B) for j in range(nbp))
+    rows_max = _ceil(P, nbp)
+    npos = rows_max * R
+    # the most threads on a group of positions (each weight read from
+    # shared memory then feeds the most positions) with which the groups
+    # cover the band
+    threads = min(THREADS_MAX, 32 * _ceil(npos, 32))
+    configs = kernel_configs(H)
+    for ks in sorted({k for k, _ in configs}, reverse=True):
+        need = _ceil(npos, threads // ks)
+        pts = [p for k, p in configs if k == ks and p >= need]
+        if pts:
+            pt = pts[0]
+            break
+    else:
+        raise ValueError(
+            f"ref_attn_diffusion kernel: a band of {rows_max} rows x R={R} "
+            f"needs more than {threads} threads of at most "
+            f"{max(p for _, p in configs)} positions")
+    # weights, block partials, block counts, band with halo, warp sums,
+    # lane sums, four vectors of H (`diffusion_kernel`'s carve-up)
+    smem = 4 * (9 * H * (H + 4) + 2 * nbp * H + nbp
+                + (rows_max + 2) * (R + 2) * (H + ks)
+                + (threads // 32) * H + threads + 4 * H)
+    if smem > SMEM_MAX:
+        raise ValueError(
+            f"ref_attn_diffusion kernel: a band of {rows_max} rows x R={R} "
+            f"x H={H} needs {smem} bytes of shared memory, more than "
+            f"{SMEM_MAX}")
+    return BandPlan(nbp, bands, rows_max, threads, ks, pt, smem)
+
+
+def _ceil(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+_barriers = {}
+
+
+def _barrier(device: torch.device, stream: int) -> torch.Tensor:
+    """The grid barrier's counter for calls on `stream` of `device`, zeroed
+    once; every call that ends leaves it ready for the next. Calls on one
+    stream run one after another, so they share it; calls on two streams
+    may run at once, so they never do. (A CUDA graph keeps the counter of
+    the stream it was captured on: replays that overlap one another or
+    calls on that stream would share it.)"""
+    bar = _barriers.get((device, stream))
+    if bar is None:
+        bar = torch.zeros(1, dtype=torch.int32, device=device)
+        _barriers[device, stream] = bar
+    return bar
+
+
+def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+            ) -> torch.Tensor:
     from gwdepth_tpu_torch import _build
 
     if not a.is_cuda:
@@ -87,21 +196,21 @@ def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     for name, t in (("w", w), ("b", b)):
         if t.device != a.device:
             raise ValueError(f"{name} on {t.device}, planes on {a.device}")
+    plan = band_partition(B, P, R, H, torch.cuda.get_device_properties(
+        a.device).multi_processor_count)
     dtype = a.dtype
     a32 = a.float().contiguous()
     w32 = w.float().contiguous()
     b32 = b.float().contiguous()
-    TP = tile_rows(P, R)
-    nT = -(-P // TP)
     out = torch.empty_like(a32)
-    tmp = torch.empty_like(a32)
-    upd = torch.empty_like(a32)
-    stats = torch.empty((B, nT, H, 2), dtype=torch.float32, device=a.device)
-    lib = _lib()
-    err = lib.gw_ref_attn_diffusion(
-        a32.data_ptr(), out.data_ptr(), tmp.data_ptr(), upd.data_ptr(),
-        stats.data_ptr(), w32.data_ptr(), b32.data_ptr(), B, P, R, H, TP,
-        torch.cuda.current_stream(a.device).cuda_stream)
+    stats = torch.empty((B * plan.nbp, H, 2), dtype=torch.float32,
+                        device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = _lib().gw_ref_attn_diffusion(
+        a32.data_ptr(), out.data_ptr(), stats.data_ptr(),
+        _barrier(a.device, stream).data_ptr(), w32.data_ptr(),
+        b32.data_ptr(), B, P, R, H, plan.nbp, plan.rows_max, plan.threads,
+        plan.ks, plan.pt, plan.smem, stream)
     _build.check(err, "ref_attn_diffusion launch")
     ref_attn_diffusion.launches += 1
     return out.to(dtype)
@@ -115,7 +224,8 @@ def _lib():
     if fn.argtypes is None:
         P = ctypes.c_void_p
         I = ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, P]
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+                       ctypes.c_longlong, P]
         fn.restype = ctypes.c_int
     return lib
 

@@ -13,9 +13,11 @@ The counterpart of the K3/K4 half of `gwdepth_tpu/ops/pallas_kernels.py`
   `window_msa_plain`.
 - `layout_fence(x)`, the counterpart of `layout_fence`: an identity copy;
   `ndim < 2` returns x itself, as there. A CUDA tensor launches
-  `csrc/layout_fence.cu`; a CPU tensor takes `x.clone()`. PyTorch has no
-  layout assignment for the fence to stop, so it only computes what the
-  TPU kernel computes.
+  `csrc/layout_fence.cu` once, whether x is contiguous or a strided view
+  of rows (`fence_rows`; the fused entry's x is a channel slice of wider
+  rows); a CPU tensor takes `x.clone()`. PyTorch has no layout
+  assignment for the fence to stop, so it only computes what the TPU
+  kernel computes.
 - `fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask,
   num_heads)`, the counterpart of `fused_window_attention`: the fence on
   x, the qkv projection, K3 (with q scaled by hd^-0.5 inside the kernel,
@@ -162,16 +164,47 @@ def _launch_msa(q, k, v, bias, mask, q_scale: float) -> torch.Tensor:
     return out
 
 
+FENCE_MAX_DIMS = 4
+
+
+def fence_rows(x: torch.Tensor):
+    """x's bytes as the fence kernel reads them: (row_bytes, dims), where
+    dims are (size, byte stride) of the rows, outermost first, each row
+    `row_bytes` contiguous bytes; dims == [] when x is contiguous. Size-1
+    dims are dropped and dims that step evenly are merged."""
+    es = x.element_size()
+    sizes = [(n, st * es) for n, st in zip(x.shape, x.stride()) if n != 1]
+    run = es
+    while sizes and sizes[-1][1] == run:
+        run *= sizes.pop()[0]
+    dims = []
+    for n, st in sizes:
+        if dims and dims[-1][1] == st * n:
+            dims[-1] = (dims[-1][0] * n, st)
+        else:
+            dims.append((n, st))
+    return run, dims
+
+
 def _launch_fence(x: torch.Tensor) -> torch.Tensor:
     from gwdepth_tpu_torch import _build
 
     if not x.is_cuda:
         raise ValueError(f"layout_fence: no kernel for device {x.device}")
-    x = x.contiguous()
-    out = torch.empty_like(x)
-    P = ctypes.c_void_p
-    fn = _lib("layout_fence", [P, P, ctypes.c_longlong, P])
-    err = fn(x.data_ptr(), out.data_ptr(), x.numel() * x.element_size(),
+    row_bytes, dims = fence_rows(x)
+    if len(dims) > FENCE_MAX_DIMS:
+        raise ValueError(f"layout_fence kernel: a view of {len(dims)} "
+                         f"strided row dims, more than {FENCE_MAX_DIMS}")
+    out = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    nbytes = x.numel() * x.element_size()
+    if nbytes == 0:
+        return out
+    L, P = ctypes.c_longlong, ctypes.c_void_p
+    shape = (L * FENCE_MAX_DIMS)(*[n for n, _ in dims])
+    stride = (L * FENCE_MAX_DIMS)(*[st for _, st in dims])
+    fn = _lib("layout_fence", [P, P, L, L, ctypes.c_int, P, P, P])
+    err = fn(x.data_ptr(), out.data_ptr(), nbytes, row_bytes if dims else 0,
+             len(dims), ctypes.cast(shape, P), ctypes.cast(stride, P),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layout_fence launch")
     layout_fence.launches += 1

@@ -51,7 +51,12 @@ def _k1_inputs(seed, shape, dev):
 
 
 @pytest.mark.parametrize("shape", [(1, 980, 40, 16), (2, 30, 8, 4),
-                                   (1, 7, 3, 2), (1, 50, 33, 32)])
+                                   (1, 7, 3, 2), (1, 50, 33, 32),
+                                   # the train shape; a P the grid does not
+                                   # divide; P below the grid; H = 32 at
+                                   # the serving P
+                                   (2, 980, 40, 16), (1, 997, 12, 8),
+                                   (2, 20, 40, 16), (1, 980, 40, 32)])
 def test_k1_kernel_matches_plain(dev, shape):
     a, w, b = _k1_inputs(0, shape, dev)
     before = port_k1.ref_attn_diffusion.launches
@@ -62,6 +67,84 @@ def test_k1_kernel_matches_plain(dev, shape):
                                atol=TOL, rtol=0)
     # the statistics are combined in a fixed order: bit-equal on a rerun
     assert torch.equal(port_k1.ref_attn_diffusion(a, w, b), got)
+
+
+def test_k1_kernel_reruns_are_bit_equal(dev):
+    """The plane statistics are combined in a fixed order in every block:
+    three reruns give the same bits."""
+    a, w, b = _k1_inputs(20, (1, 980, 40, 16), dev)
+    first = port_k1.ref_attn_diffusion(a, w, b)
+    for _ in range(3):
+        assert torch.equal(port_k1.ref_attn_diffusion(a, w, b), first)
+
+
+def test_k1_kernel_in_cuda_graph(dev):
+    """One call captured in a CUDA graph and replayed twice gives the eager
+    call's bits: the grid barrier's state survives capture and replay."""
+    a, w, b = _k1_inputs(21, (2, 980, 40, 16), dev)
+    eager = port_k1.ref_attn_diffusion(a, w, b)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        port_k1.ref_attn_diffusion(a, w, b)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = port_k1.ref_attn_diffusion(a, w, b)
+    for _ in range(2):
+        got.zero_()
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, eager)
+    assert torch.equal(port_k1.ref_attn_diffusion(a, w, b), eager)
+
+
+def test_k1_calls_on_two_streams_at_once(dev):
+    """Calls on two streams can run on the card at the same time (two of
+    the kernel's blocks fit on an SM): each stream has a grid barrier of
+    its own, so every call gives the bits of an eager call on one
+    stream. A sleep at the head of both streams queues the calls so that
+    they start together."""
+    shape = (1, 980, 40, 16)
+    inputs = [_k1_inputs(23 + i, shape, dev) for i in range(2)]
+    want = [port_k1.ref_attn_diffusion(*x) for x in inputs]
+    for x, y in zip(inputs, want):
+        torch.testing.assert_close(y, port_k1.ref_attn_diffusion_plain(*x),
+                                   atol=TOL, rtol=0)
+    streams = [torch.cuda.Stream() for _ in inputs]
+    outs = [[] for _ in inputs]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(50_000_000)
+    for _ in range(8):
+        for s, x, out in zip(streams, inputs, outs):
+            with torch.cuda.stream(s):
+                out.append(port_k1.ref_attn_diffusion(*x))
+    torch.cuda.synchronize()
+    for y, out in zip(want, outs):
+        for got in out:
+            assert torch.equal(got, y)
+
+
+def test_k1_kernel_is_one_launch(dev):
+    """The profiler sees one CUDA kernel per call: all three steps run in
+    the one cooperative launch."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, w, b = _k1_inputs(22, (1, 980, 40, 16), dev)
+    port_k1.ref_attn_diffusion(a, w, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            port_k1.ref_attn_diffusion(a, w, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 2 and all("diffusion_kernel" in k
+                                     for k in kernels), kernels
 
 
 def test_k1_kernel_rejects_unsupported_heads(dev):
@@ -390,3 +473,81 @@ def test_k4_fence_is_identity_and_counts(dev, shape, dtype):
     one = torch.arange(5.0, device=dev)
     assert port_wm.layout_fence(one) is one
     assert port_wm.layout_fence.launches == 2
+
+
+# byte counts around the kernel's edges: empty, below one word, one word,
+# one word and a byte, around 8 KB, and around one block's trip (256
+# threads x 8 words x 16 bytes)
+_FENCE_BYTES = (0, 1, 15, 16, 17, 8191, 8192, 8193, 32767, 32768, 32769,
+                100003)
+
+
+@pytest.mark.parametrize("offset", [0, 1, 3, 16])
+def test_k4_copies_every_byte(dev, offset):
+    """Every byte count, from a view that starts
+    `offset` bytes into its storage (1, 3: not 16-byte aligned; 16:
+    aligned but not at the allocation's start), bit-exact, one launch a
+    non-empty copy."""
+    store = torch.randint(0, 256, (max(_FENCE_BYTES) + offset,),
+                          dtype=torch.uint8, device=dev,
+                          generator=torch.Generator(dev).manual_seed(offset))
+    for n in _FENCE_BYTES:
+        x = store[offset:offset + n].view(1, n)
+        assert n == 0 or x.data_ptr() % 16 == offset % 16
+        port_wm.reset_counts()
+        got = port_wm._launch_fence(x)
+        torch.cuda.synchronize()
+        assert port_wm.layout_fence.launches == (1 if n else 0)
+        assert torch.equal(got, x), (offset, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.bfloat16,
+                                   torch.float32])
+def test_k4_fence_dtypes_and_large_input(dev, dtype):
+    """1-byte, bf16 and float32 elements through the fence, at a size of
+    the fused entry's largest site (about 13 MB) and an odd one."""
+    gen = torch.Generator(dev).manual_seed(5)
+    per_row = 256 // torch.empty((), dtype=dtype).element_size()
+    for shape in ((1036 * 49, per_row), (7, 333)):
+        x = torch.randn(shape, device=dev, generator=gen).mul(50).to(dtype)
+        port_wm.reset_counts()
+        got = port_wm.layout_fence(x)
+        torch.cuda.synchronize()
+        assert port_wm.layout_fence.launches == 1
+        assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+
+
+def test_k4_fence_view_with_unaligned_offset(dev):
+    """A float32 view 4 bytes into its storage, and a bf16 view 2 bytes
+    in: not 16-byte aligned, copied bit-exact in one launch."""
+    for dtype, shift in ((torch.float32, 1), (torch.bfloat16, 1)):
+        base = torch.randn(4097 * 9, device=dev).to(dtype)
+        x = base[shift:shift + 4096 * 9].view(4096, 9)
+        assert x.data_ptr() % 16 != 0
+        port_wm.reset_counts()
+        got = port_wm.layout_fence(x)
+        torch.cuda.synchronize()
+        assert port_wm.layout_fence.launches == 1
+        assert torch.equal(got.view(torch.uint8), x.view(torch.uint8))
+
+
+def test_k4_fence_reads_strided_views_in_one_launch(dev):
+    """The fused entry's x, a channel slice of wider rows, and other views
+    (a transpose, rows of 12 bytes, a broadcast, a negative-free 4-dim
+    slice) are copied bit-exact by one launch, without a contiguous copy
+    before it."""
+    gen = torch.Generator(dev).manual_seed(7)
+    xw = torch.randn(2, 70, 49, 64 + 2 * 16, device=dev, generator=gen)
+    big = torch.randn(6, 5, 7, 9, 11, device=dev, generator=gen)
+    views = [xw[..., :64], xw[..., 64:80], xw[:, ::3, :, :64],
+             xw[0].transpose(0, 1), xw[..., 1:4],
+             torch.randn(33, device=dev, generator=gen).expand(7, 33),
+             big[:, 1:4, ::2, 2:, 3:7]]
+    for x in views:
+        port_wm.reset_counts()
+        got = port_wm._launch_fence(x)
+        torch.cuda.synchronize()
+        assert port_wm.layout_fence.launches == 1
+        assert got.is_contiguous() and torch.equal(got, x)
+    with pytest.raises(ValueError, match="strided row dims"):
+        port_wm._launch_fence(big[::2, ::2, ::2, ::2, ::2])

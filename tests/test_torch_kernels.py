@@ -88,11 +88,75 @@ def test_k1_wrapper_raises_on_other_devices():
         port_k1.ref_attn_diffusion(a, w, b)
 
 
-def test_k1_tile_rows():
-    assert port_k1.tile_rows(980, 40) == 6       # main path: 240 threads
-    assert port_k1.tile_rows(3, 8) == 3
-    with pytest.raises(ValueError):
-        port_k1.tile_rows(10, 2000)
+@pytest.mark.parametrize("shape", [(1, 980, 40, 16), (2, 980, 40, 16),
+                                   (1, 997, 12, 8), (2, 20, 40, 16),
+                                   (1, 7, 3, 2), (3, 50, 33, 32)])
+def test_k1_band_partition(shape):
+    """K1's persistent grid on a 132-SM card: the bands cover every row of
+    every plane once, none crosses a plane, a plane's bands differ by at
+    most a row, every block has at least one row, and the threads cover
+    the widest band."""
+    B, P, R, H = shape
+    plan = port_k1.band_partition(B, P, R, H, sms=132)
+    assert len(plan.bands) == B * plan.nbp <= 132
+    rows = {}
+    for b, p0, n in plan.bands:
+        assert 0 <= b < B and n >= 1 and p0 + n <= P
+        for p in range(p0, p0 + n):
+            assert (b, p) not in rows
+            rows[b, p] = True
+    assert len(rows) == B * P
+    sizes = [n for _, _, n in plan.bands]
+    assert max(sizes) - min(sizes) <= 1 and max(sizes) == plan.rows_max
+    assert plan.threads % 32 == 0 and plan.threads <= port_k1.THREADS_MAX
+    assert plan.threads // plan.ks * plan.pt >= plan.rows_max * R
+    assert (plan.ks, plan.pt) in port_k1.kernel_configs(H)
+    assert plan.smem == 4 * (9 * H * (H + 4) + 2 * plan.nbp * H + plan.nbp
+                             + (plan.rows_max + 2) * (R + 2) * (H + plan.ks)
+                             + plan.threads // 32 * H + plan.threads
+                             + 4 * H)
+
+
+def test_k1_kernel_configs_come_from_the_source():
+    """The (KS, PT) the wrapper may pick are read from the CUDA source's one
+    list of built instances: some for every H the kernel takes, none
+    twice, each with KS dividing H and PT * H <= 128 sums in registers."""
+    inst = port_k1._instances()
+    assert len(set(inst)) == len(inst)
+    assert {h for h, _, _ in inst} == set(port_k1._HEADS)
+    for H in port_k1._HEADS:
+        cfgs = port_k1.kernel_configs(H)
+        assert cfgs and all(H % ks == 0 and pt * H <= 128
+                            for ks, pt in cfgs), (H, cfgs)
+    assert (4, 5) in port_k1.kernel_configs(16)
+
+
+def test_k1_band_partition_main_path():
+    """The serving plane: one block per SM, bands of 7 or 8 rows, 8 warps,
+    4 threads on each group of 5 positions (320 a block, the widest band),
+    the band with its halo 33 KB of shared memory (63 KB in all); the train
+    planes: 66 blocks each, 15 rows, 2 threads on each group of 5."""
+    plan = port_k1.band_partition(1, 980, 40, 16, sms=132)
+    assert (plan.nbp, plan.rows_max, plan.threads, plan.ks, plan.pt) == \
+        (132, 8, 256, 4, 5)
+    assert plan.smem == 64336
+    plan = port_k1.band_partition(2, 980, 40, 16, sms=132)
+    assert (plan.nbp, plan.rows_max, plan.threads, plan.ks, plan.pt) == \
+        (66, 15, 256, 2, 5)
+
+
+def test_k1_band_partition_refuses_what_does_not_fit():
+    """A band past 227 KB of shared memory, or wider than the block's
+    threads can hold, raises before any launch."""
+    with pytest.raises(ValueError, match="shared memory"):
+        port_k1.band_partition(1, 10, 1020, 16, sms=132)
+    with pytest.raises(ValueError, match="threads"):
+        port_k1.band_partition(1, 10, 2000, 16, sms=132)
+    with pytest.raises(ValueError, match="threads"):
+        port_k1.band_partition(1, 10, 3000, 2, sms=132)
+    # one row a block at a width that fits
+    assert port_k1.band_partition(1, 10, 600, 16, sms=132).smem \
+        <= port_k1.SMEM_MAX
 
 
 def _k2_inputs(seed, ci, co=24, B=2, H=12, W=20):

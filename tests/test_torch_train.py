@@ -390,19 +390,29 @@ def _jax_adam_mu(jstate):
 
 
 @pytest.fixture(scope="module")
-def trajectory(one_torch_thread):
+def trajectory():
     """N steps of the JAX `make_train_step` and of the port's, from the
-    same weights on the same batches. After step 1 each optimizer's first
-    moment is (1 - beta1) x the clipped first gradient, which gives the
-    first-step gradients of both without another compile. Torch runs on
-    the process's own thread count here: the parameter bound's 1e-3
-    share was set against that summation order, and one thread's order
-    moves 0.44 % of the elements past 1e-2 * lr."""
-    torch.set_num_threads(one_torch_thread)
-    try:
-        return _trajectory()
-    finally:
-        torch.set_num_threads(1)
+    same weights on the same batches. Each optimizer's first moment after
+    step k is beta1 x the one before + (1 - beta1) x the clipped gradient
+    of step k, which gives every step's gradients of both without another
+    compile: `jmu`/`pmu` hold the first moments after step 1, `grad_gap`
+    each element's largest relative gap between the two gradients over
+    the steps (`_grad_gap`)."""
+    return _trajectory()
+
+
+def _grad_gap(jmu, pmu, jprev, pprev, beta1: float) -> np.ndarray:
+    """|port - JAX| / |JAX| of the gradient a step fed Adam, per element,
+    from the first moments after the step and before it (None at step 1;
+    the common factor 1 - beta1 cancels): 0 where the two are equal,
+    inf where only JAX's is 0."""
+    jg, pg = jmu.astype(np.float64), pmu.astype(np.float64)
+    if jprev is not None:
+        jg -= beta1 * jprev
+        pg -= beta1 * pprev
+    with np.errstate(divide="ignore", invalid="ignore"):
+        gap = np.abs(pg - jg) / np.abs(jg)
+    return np.where(pg == jg, 0.0, gap).astype(np.float32)
 
 
 def _trajectory():
@@ -424,19 +434,27 @@ def _trajectory():
     step = jstep.make_train_step(jcfg, jmodel)
     pstate = create_train_state(cfg, model, steps_per_epoch=2)
     pstep_fn = make_train_step(cfg)
+    beta1 = pstate.optimizer.param_groups[0]["betas"][0]
     jlosses, plosses = [], []
+    prev, gap = {}, {}
     for i, (jb, pb) in enumerate(batches):
         state, vec = step(state, jb, jax.random.PRNGKey(i))
         jlosses.append(np.asarray(vec))
         pstate, vec = pstep_fn(pstate, pb, torch.Generator().manual_seed(i))
         plosses.append(vec.numpy())
+        pmu_i = {n: pstate.optimizer.state[p]["exp_avg"].clone()
+                 for n, p in model.named_parameters() if p.requires_grad}
+        jmu_i = jax_params_to_state_dict(_jax_adam_mu(state), pmu_i)
+        for n, m in pmu_i.items():
+            jm, pm = jmu_i[n].numpy(), m.numpy()
+            g = _grad_gap(jm, pm, *prev.get(n, (None, None)), beta1)
+            gap[n] = np.maximum(gap[n], g) if n in gap else g
+            prev[n] = (jm, pm)
         if i == 0:
-            jmu = _jax_adam_mu(state)
-            pmu = {n: pstate.optimizer.state[p]["exp_avg"].clone()
-                   for n, p in model.named_parameters() if p.requires_grad}
+            jmu, pmu = _jax_adam_mu(state), pmu_i
     return dict(cfg=cfg, model=model, init_sd=init_sd, jstate=state,
-                jmu=jmu, pmu=pmu, jkeys=step.log_keys, pkeys=pstep_fn.log_keys,
-                jlosses=jlosses, plosses=plosses)
+                jmu=jmu, pmu=pmu, grad_gap=gap, jkeys=step.log_keys,
+                pkeys=pstep_fn.log_keys, jlosses=jlosses, plosses=plosses)
 
 
 def test_trajectory_losses_match_jax(trajectory):
@@ -465,13 +483,28 @@ def test_first_step_gradients_match_jax(trajectory):
             assert rel <= 2e-3, (n, rel)
 
 
+# Adam moves an element by lr x m / (sqrt(v) + eps) from that element's
+# own gradients: at step 1 by lr x their sign, whatever their size. Where
+# each step's port gradient is within a relative r of JAX's, the
+# bias-corrected m / sqrt(v) of the two differ by at most 2 r a step
+# (Cauchy-Schwarz over the steps' weights in m and v), so after 3 steps
+# the parameters by at most 4 r lr, plus float32 rounding. The elements
+# whose gradients agree to GRAD_REL at every step (most of them) are held
+# to 1e-2 lr with no allowance. The others include gradients near 0 that
+# another summation order (torch's CPU thread count changes it) turns to
+# the other sign, or that make m nearly cancel at a later step; each may
+# move up to 2 lr a step the other way, and at most 0.1 % of all elements
+# may lie past 1e-2 lr.
+GRAD_REL = 1e-3
+
+
 def test_trajectory_parameters_match_jax(trajectory):
     tr = trajectory
     cfg = tr["cfg"]
     want = jax_params_to_state_dict(
         jax.tree.map(np.asarray, tr["jstate"].params),
         tr["model"].state_dict())
-    far = total = moved = 0
+    held = far = total = moved = 0
     for n, p in tr["model"].named_parameters():
         got, e = p.detach().numpy(), want[n].numpy()
         start = tr["init_sd"][n].numpy()
@@ -482,9 +515,14 @@ def test_trajectory_parameters_match_jax(trajectory):
         lr = cfg.lr_backbone if n.startswith("backbone.") else cfg.lr
         diff = np.abs(got - e)
         assert diff.max() <= 2 * lr * N_STEPS + 1e-6, n
+        agree = tr["grad_gap"][n] <= GRAD_REL
+        assert diff[agree].max(initial=0.0) <= 1e-2 * lr, \
+            (n, float(diff[agree].max()) / lr)
+        held += int(agree.sum())
         far += int((diff > 1e-2 * lr).sum())
         total += diff.size
         moved += int((got != start).sum())
+    assert held > 0.5 * total, (held, total)
     assert far <= 1e-3 * total, (far, total)
     assert moved > 0.5 * total, (moved, total)
 

@@ -221,6 +221,35 @@ def test_layout_fence_is_identity(shape):
     assert torch.equal(g, ct)
 
 
+def _fence_bytes(x: torch.Tensor) -> bytes:
+    """x's bytes gathered from its storage as the fence kernel reads them,
+    by `fence_rows`' description."""
+    row_bytes, dims = wm.fence_rows(x)
+    store = bytes(x.untyped_storage())
+    start = x.storage_offset() * x.element_size()
+    if not dims:
+        return store[start:start + x.numel() * x.element_size()]
+    out = []
+    for idx in np.ndindex(*[n for n, _ in dims]):
+        at = start + sum(i * st for i, (_, st) in zip(idx, dims))
+        out.append(store[at:at + row_bytes])
+    return b"".join(out)
+
+
+@pytest.mark.parametrize("make", [
+    lambda t: t, lambda t: t[..., :8], lambda t: t[:, ::2, :, 3:5],
+    lambda t: t[1].transpose(0, 1), lambda t: t[0, 0, :1].expand(5, 12),
+    lambda t: t.reshape(-1)[1:61].view(5, 12)])
+def test_fence_rows_describe_the_view(make):
+    """The row description the fence kernel gets (contiguous runs of bytes
+    and the strides of the rows) gathers exactly x's bytes, for the fused
+    entry's channel slice and other views."""
+    base = _t(np.random.default_rng(1).standard_normal((2, 6, 7, 12)))
+    x = make(base)
+    assert _fence_bytes(x) == x.contiguous().numpy().tobytes()
+    assert len(wm.fence_rows(x)[1]) <= wm.FENCE_MAX_DIMS
+
+
 @pytest.fixture(scope="module")
 def tiny_sites():
     """One tiny-config forward of a port GlassRGBD whose dense encoder
