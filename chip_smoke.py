@@ -1191,6 +1191,41 @@ def graph_ms(fn, reps: int = 10) -> float:
     return time_ms(g.replay, reps=10, warmup=2) / reps
 
 
+# a write of this many bytes between timed calls evicts the 50 MB L2
+FLUSH_BYTES = 128 << 20
+
+
+def cold_ms(fn, reps: int = 10) -> float:
+    """Device time of one call of `fn` on a cold L2: before each call a
+    write of FLUSH_BYTES evicts its inputs, then a spin of about 0.5 ms
+    keeps the card busy while the host queues the call; CUDA events around
+    the call alone, median of `reps`."""
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    ev = []
+    for _ in range(reps):
+        flush.fill_(1.0)
+        torch.cuda._sleep(1_000_000)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        ev.append((s, e))
+    torch.cuda.synchronize()
+    return float(np.median([s.elapsed_time(e) for s, e in ev]))
+
+
+def k3_device_fields(fn, bound: dict, device_ms: float) -> dict:
+    """K3's share of its bound at a site, on the warm L2 of the CUDA-graph
+    replays (`device_ms`) and on a cold L2 (`cold_ms`)."""
+    cold = cold_ms(fn)
+    return {"bound_frac": bound["bound_ms"] / device_ms,
+            "cold_device_ms": cold,
+            "cold_bound_frac": bound["bound_ms"] / cold}
+
+
 def timed(kernel, plain, library) -> dict:
     """Event times per call (`time_ms`, the host's launch path included)
     and device times per call (`graph_ms`) of a kernel, its plain version
@@ -1278,6 +1313,9 @@ def phase_window_attention(rng):
                            lambda: wm.window_msa_plain(q, k, v, bias, mask),
                            lib),
                    **k3_bound(q, mask)}
+            rec.update(k3_device_fields(
+                lambda: wm.window_msa_kernel(q, k, v, bias, mask), rec,
+                rec["kernel_device_ms"]))
             assert torch.isfinite(got).all(), f"K3 {rec['site']} not finite"
             assert rec["max_err"] <= K3_TOL and \
                 rec["model_max_err"] <= K3_TOL, rec
@@ -1342,6 +1380,7 @@ def phase_window_attention(rng):
                            lambda: F.scaled_dot_product_attention(
                                qs, ks, vs, attn_mask=am, scale=1.0)),
                    **k3_bound(q, mask),
+                   "site": list(q.shape),
                    "fused_ms": time_ms(lambda: wm.fused_window_attention(
                        x, *w, mask, H)),
                    "fused_plain_ms": time_ms(
@@ -1351,6 +1390,9 @@ def phase_window_attention(rng):
                                      lambda: wm.layout_fence_plain(xf),
                                      lambda: copy_to.copy_(xf)),
                              **fence_bound(xf)}}
+            rec.update(k3_device_fields(
+                lambda: wm.window_msa_kernel(q, k, v, bias, mask), rec,
+                rec["kernel_device_ms"]))
         rec["backward_ms"] = bwd_time_ms(y, leaves, ct)
         rec["backward_plain_ms"] = bwd_time_ms(y_plain, leaves, ct)
         log("[window] train " + json.dumps(rec))
@@ -1374,6 +1416,33 @@ def copy_kernel_names() -> list:
         + (json.dumps(names) if names
            else "not measured (the profiler saw no device events)"))
     return names
+
+
+# K3 at a 1/32 site (one window a block) and at the 1/4 site (many)
+K3_PROFILE_SITES = (((1, 20, 16, 49, 32), True), ((1, 1036, 16, 49, 4), False))
+
+
+def check_k3_one_kernel(rng) -> None:
+    """One K3 call at each of two serving shapes, seeded inputs, must run
+    exactly one CUDA kernel, its own, as the profiler names them. Run
+    before the model phases, as `copy_kernel_names`."""
+    def card(shape, scale=1.0):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)
+                                * scale).to("cuda")
+
+    for shape, with_mask in K3_PROFILE_SITES:
+        B, nW, H, N, hd = shape
+        q, k, v = card(shape), card(shape), card(shape)
+        bias = card((H, N, N))
+        mask = (torch.from_numpy(np.where(rng.random((nW, N, N)) < 0.2,
+                                          -100.0, 0.0).astype(np.float32))
+                .to("cuda") if with_mask else None)
+        got = device_kernel_names(
+            lambda: wm.window_msa_kernel(q, k, v, bias, mask))
+        log(f"[kernels] one K3 call at {list(shape)} runs: "
+            + json.dumps([n[:120] for n in got]))
+        assert len(got) == 1 and "window_msa_kernel" in got[0], \
+            f"K3 at {shape}: {got}, expected one window_msa_kernel"
 
 
 def window_kernel_entries(win, serve_n: dict, train_run: dict,
@@ -1402,6 +1471,7 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict,
         {"name": "window_msa", "route": "cuda",
          "source": "gwdepth_tpu_torch/csrc/window_msa.cu",
          "replaces": "gwdepth_tpu/ops/pallas_kernels.py:232",
+         "redesigned": "3xTF32 mma.sync, 4 warps a (window, head) pair",
          "launches": win["k3_launches"],
          "model_path_launches": serve_n["k3"],
          "train_launches": train_run["k3"],
@@ -1415,6 +1485,9 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict,
          "library_ms": total(sites, "library_ms"),
          **device_totals(sites),
          "library_backends": sorted({r["library_backend"] for r in sites}),
+         "cold_device_ms": total(sites, "cold_device_ms"),
+         "bound_frac": total(sites, "bound_ms") / total(sites,
+                                                        "kernel_device_ms"),
          "fused_ms": total(win["fused"], "fused_ms"),
          "fused_plain_ms": total(win["fused"], "fused_plain_ms"),
          "train_ms": total(train, "kernel_ms"),
@@ -1423,6 +1496,9 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict,
          "train_bound_by": by(train),
          "train_library_ms": total(train, "library_ms"),
          **device_totals(train, "train_"),
+         "train_cold_device_ms": total(train, "cold_device_ms"),
+         "train_bound_frac": total(train, "bound_ms") / total(
+             train, "kernel_device_ms"),
          "train_fused_ms": total(train, "fused_ms"),
          "train_fused_plain_ms": total(train, "fused_plain_ms"),
          # no backward kernel: the backward is plain PyTorch
@@ -1460,6 +1536,7 @@ def main(argv=None) -> None:
     copy_kernels = copy_kernel_names()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
+    check_k3_one_kernel(np.random.default_rng(SEED + 7))
     with torch.no_grad():
         k1 = phase_k1(rng, dev)
         k2 = phase_k2(rng, dev)
@@ -1594,7 +1671,9 @@ def main(argv=None) -> None:
         "call (the host's launch path included), *device_ms per call of "
         "10 calls captured in a CUDA graph; K3's library is "
         "F.scaled_dot_product_attention with a float attn_mask, K4's "
-        "Tensor.copy_.")
+        "Tensor.copy_; K3's bound_frac = bound_ms / device_ms, "
+        "cold_device_ms summed over the sites, each the median of 10 calls "
+        "after a 128 MB write.")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -170,9 +170,18 @@ def _barrier(device: torch.device, stream: int) -> torch.Tensor:
     """The grid barrier's counter for calls on `stream` of `device`, zeroed
     once; every call that ends leaves it ready for the next. Calls on one
     stream run one after another, so they share it; calls on two streams
-    may run at once, so they never do. (A CUDA graph keeps the counter of
-    the stream it was captured on: replays that overlap one another or
-    calls on that stream would share it.)"""
+    may run at once, so they never do.
+
+    A call captured in a CUDA graph gets a counter of its own instead,
+    allocated inside the capture from the graph's pool and zeroed by a node
+    captured just before the kernel, so every replay starts it at 0. A
+    replay runs on the stream it is launched on, not the one it was
+    captured on, so a stream's counter would be shared by a replay and a
+    direct call on the capture stream, or by replays of two graphs
+    captured on one stream, running at once; replays of one graph run one
+    after another, so its own counter is never shared."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(1, dtype=torch.int32, device=device)
     bar = _barriers.get((device, stream))
     if bar is None:
         bar = torch.zeros(1, dtype=torch.int32, device=device)

@@ -8,9 +8,11 @@ The counterpart of the K3/K4 half of `gwdepth_tpu/ops/pallas_kernels.py`
   softmax(q kᵀ + bias[h] (+ mask[w mod nW])) v with float32 logits and a
   max-subtracted softmax. q/k/v (B, nW, H, N, hd), q pre-scaled; bias
   (H, N, N); mask (nW, N, N) additive or None. Returns (B, nW, N, H*hd)
-  float32. A CUDA tensor launches `csrc/window_msa.cu` (it replaces the
-  Pallas kernel `_window_msa_pallas`); a CPU tensor takes
-  `window_msa_plain`.
+  float32. A CUDA tensor launches `csrc/window_msa.cu` once (it replaces
+  the Pallas kernel `_window_msa_pallas`: 3xTF32 `mma.sync` products, four
+  warps a (window, head) pair, a grid that `launch_plan` sizes to one
+  wave from the SM count and the kernel's occupancy, both asked once per
+  device); a CPU tensor takes `window_msa_plain`.
 - `layout_fence(x)`, the counterpart of `layout_fence`: an identity copy;
   `ndim < 2` returns x itself, as there. A CUDA tensor launches
   `csrc/layout_fence.cu` once, whether x is contiguous or a strided view
@@ -44,6 +46,8 @@ gradient through.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -103,10 +107,11 @@ def fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj, bias, mask,
 # kernel launches
 # ---------------------------------------------------------------------------
 
-def _lib(name: str, argtypes):
+def _lib(name: str, argtypes, source: Optional[str] = None):
+    """The C entry `gw_<name>` of `csrc/<source or name>.cu`."""
     from gwdepth_tpu_torch import _build
 
-    lib = _build.load(name)
+    lib = _build.load(source or name)
     fn = getattr(lib, f"gw_{name}")
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -123,6 +128,116 @@ def _check_shapes(B, nW, H, N, hd, bias, mask) -> None:
         raise ValueError(f"bias {tuple(bias.shape)}, expected {(H, N, N)}")
     if mask is not None and tuple(mask.shape) != (nW, N, N):
         raise ValueError(f"mask {tuple(mask.shape)}, expected {(nW, N, N)}")
+
+
+# shared memory a block can use on an H100
+SMEM_MAX = 232448
+
+
+def head_pad(hd: int) -> int:
+    """hd padded to the mma's k steps of 8 (8, 16, 24 or 32)."""
+    return 8 * _ceil(hd, 8)
+
+
+def key_tiles(N: int) -> int:
+    """Key tiles of 8 of the kernel instance that takes N tokens (2, 4, 7
+    or 8; `key_tiles` in `csrc/window_msa.cu`)."""
+    return 2 if N <= 16 else 4 if N <= 32 else 7 if N <= 56 else 8
+
+
+def smem_layout(N: int, hdp: int, has_mask: bool) -> dict:
+    """K3's shared-memory carve-up in floats (`Tile` in
+    `csrc/window_msa.cu`): bias[h] (`bias` floats, rows of `bs`), then each
+    stage of q and k (rows of `qs`), v (rows of `vs`) and the window's mask
+    as it lies in memory (N x N floats from the 16-byte boundary at or
+    below its start, at most np16 x np8 + 8 floats), `stage` floats a
+    stage. Keys are padded to `np8` = 8 key_tiles(N), query rows to
+    `np16`. q, k and bias rows are read as float2 by 8 rows x 4 lanes, so
+    their strides are 8 or 24 mod 32; v rows are read as floats by rows
+    2t, 2t + 1 x 8 lanes, so its stride is 4 or 12 mod 16."""
+    nt = key_tiles(N)
+    np8, np16 = 8 * nt, 16 * _ceil(nt, 2)
+    bs = np8 if np8 % 16 == 8 else np8 + 8
+    qs = hdp if hdp % 16 == 8 else hdp + 8
+    vs = hdp + 4
+    stage = (np16 + np8) * qs + np8 * vs + (np16 * np8 + 8 if has_mask
+                                            else 0)
+    return {"np8": np8, "np16": np16, "bs": bs, "qs": qs, "vs": vs,
+            "stage": stage, "bias": np16 * bs}
+
+
+def smem_bytes(N: int, hdp: int, has_mask: bool, stages: int) -> int:
+    lay = smem_layout(N, hdp, has_mask)
+    return 4 * (lay["bias"] + stages * lay["stage"])
+
+
+@dataclasses.dataclass(frozen=True)
+class MsaPlan:
+    """K3's launch: `grid` = G x H blocks, block g * H + h owning head h of
+    windows g, g + G, ... (at most `windows` of them); `stages` windows of
+    q/k/v (and mask) in shared memory at once (2: the next window's copies
+    run under this one's products); `smem` bytes a block."""
+    grid: int
+    windows: int
+    stages: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(B: int, nW: int, H: int, N: int, hd: int, has_mask: bool,
+                sms: int, per_sm: int) -> MsaPlan:
+    """K3's grid for B * nW windows of H heads on `sms` SMs that hold
+    `per_sm` blocks each at the two-stage carve-up (cached: the wrapper asks
+    on every call). Each head gets the same G blocks, as many as one wave
+    leaves it, and every block the same number of windows to within one:
+    the fewest windows a block that fill the wave, then the fewest blocks
+    that cover the windows at that count. A block that owns one window
+    needs one stage."""
+    W = B * nW
+    slots = max(1, sms * per_sm // H)
+    windows = _ceil(W, slots)
+    G = _ceil(W, windows)
+    stages = 2 if windows > 1 else 1
+    return MsaPlan(G * H, windows, stages,
+                   smem_bytes(N, head_pad(hd), has_mask, stages))
+
+
+def rows_aligned(t: torch.Tensor) -> bool:
+    """Every (b, w, h, n) row of t starts 16-byte aligned, so K3 stages it
+    with 16-byte copies (4-byte copies for the hd % 4 tail); otherwise
+    every element takes a 4-byte copy."""
+    return t.data_ptr() % 16 == 0 and all(
+        s % 4 == 0 for s in t.stride()[:4])
+
+
+def _ceil(n: int, d: int) -> int:
+    return -(-n // d)
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def _blocks_per_sm(index: int, N: int, hd: int, smem: int) -> int:
+    """Blocks of K3's instance for N and hd that an SM of device `index`
+    holds (the kernel's registers and `smem`), asked of the CUDA runtime
+    once, which also opts the instance in to a block's whole shared memory
+    on that device."""
+    from gwdepth_tpu_torch import _build
+
+    I = ctypes.c_int
+    fn = _lib("window_msa_blocks_per_sm",
+              [I, I, ctypes.c_longlong, ctypes.c_void_p], "window_msa")
+    blocks = I(0)
+    with torch.cuda.device(index):
+        _build.check(fn(N, hd, smem, ctypes.byref(blocks)),
+                     "window_msa occupancy")
+    if blocks.value < 1:
+        raise RuntimeError(f"window_msa kernel: no block fits an SM at "
+                           f"{smem} bytes of shared memory")
+    return blocks.value
 
 
 def _launch_msa(q, k, v, bias, mask, q_scale: float) -> torch.Tensor:
@@ -151,13 +266,20 @@ def _launch_msa(q, k, v, bias, mask, q_scale: float) -> torch.Tensor:
     mask32 = None if mask is None else mask.float().contiguous()
     out = torch.empty((B, nW, N, H * hd), dtype=torch.float32,
                       device=q.device)
+    index = q.device.index if q.device.index is not None \
+        else torch.cuda.current_device()
+    per_sm = _blocks_per_sm(index, N, hd, smem_bytes(
+        N, head_pad(hd), mask is not None, 2))
+    plan = launch_plan(B, nW, H, N, hd, mask is not None, _sms(index),
+                       per_sm)
     P, I = ctypes.c_void_p, ctypes.c_int
     fn = _lib("window_msa", [P, P, P, P, P, P, P, I, I, I, I, I,
-                             ctypes.c_float, P])
+                             ctypes.c_float, I, I, I, ctypes.c_longlong, P])
     err = fn(ops[0].data_ptr(), ops[1].data_ptr(), ops[2].data_ptr(),
              ctypes.cast(strides, P), bias32.data_ptr(),
              None if mask32 is None else mask32.data_ptr(), out.data_ptr(),
-             B, nW, H, N, hd, float(q_scale),
+             B, nW, H, N, hd, float(q_scale), plan.grid, plan.stages,
+             int(all(rows_aligned(t) for t in ops)), plan.smem,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "window_msa launch")
     window_msa_kernel.launches += 1

@@ -13,6 +13,8 @@ on both sides, which are exact in float32), and the kernels only
 reassociate the sums.
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -100,11 +102,11 @@ def test_k1_kernel_in_cuda_graph(dev):
 
 
 def test_k1_calls_on_two_streams_at_once(dev):
-    """Calls on two streams can run on the card at the same time (two of
-    the kernel's blocks fit on an SM): each stream has a grid barrier of
-    its own, so every call gives the bits of an eager call on one
-    stream. A sleep at the head of both streams queues the calls so that
-    they start together."""
+    """Calls on two streams: each stream has a grid barrier of its own, so
+    every call gives the bits of an eager call on one stream. A sleep at
+    the head of both streams queues the calls so that they could start
+    together (on an H100 the card ran such cooperative launches one after
+    another: PERF.md)."""
     shape = (1, 980, 40, 16)
     inputs = [_k1_inputs(23 + i, shape, dev) for i in range(2)]
     want = [port_k1.ref_attn_diffusion(*x) for x in inputs]
@@ -125,6 +127,63 @@ def test_k1_calls_on_two_streams_at_once(dev):
     for y, out in zip(want, outs):
         for got in out:
             assert torch.equal(got, y)
+
+
+def _wait_or_fail(streams, seconds: float, what: str) -> None:
+    """Wait for the work queued on `streams`, failing the test (not hanging
+    it) if it has not ended after `seconds`: a grid barrier whose counter
+    two launches share can wait forever."""
+    events = []
+    for s in streams:
+        ev = torch.cuda.Event()
+        ev.record(s)
+        events.append(ev)
+    deadline = time.monotonic() + seconds
+    while not all(ev.query() for ev in events):
+        if time.monotonic() > deadline:
+            pytest.fail(f"{what}: not done after {seconds} s (a hang)")
+        time.sleep(0.01)
+
+
+def test_k1_graph_replays_beside_a_direct_call_on_the_capture_stream(dev):
+    """Two K1 calls captured in two CUDA graphs on stream S1, replayed on
+    S2 and S3 while S1 runs a direct call at a third input, all queued
+    behind a sleep at the head of each stream so that they start together:
+    every output equals `diffusion_torch`, and nothing hangs. A replay
+    runs on the stream it is launched on, so a counter per stream would be
+    shared by the three launches; each capture has a counter of its own.
+    (On an H100 the card ran the three cooperative launches one after
+    another, so this passes with a shared counter too: PERF.md.)"""
+    shape = (1, 980, 40, 16)
+    inputs = [_k1_inputs(30 + i, shape, dev) for i in range(3)]
+    want = [port_k1.diffusion_torch(*x) for x in inputs]
+    s1, s2, s3 = (torch.cuda.Stream() for _ in range(3))
+    s1.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s1):
+        port_k1.ref_attn_diffusion(*inputs[2])
+    torch.cuda.synchronize()
+    graphs, static = [], []
+    for x in inputs[:2]:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=s1):
+            static.append(port_k1.ref_attn_diffusion(*x))
+        graphs.append(g)
+    for _ in range(4):
+        for y in static:
+            y.zero_()
+        for s in (s1, s2, s3):
+            s.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(s):
+                torch.cuda._sleep(50_000_000)
+        with torch.cuda.stream(s2):
+            graphs[0].replay()
+        with torch.cuda.stream(s1):
+            direct = port_k1.ref_attn_diffusion(*inputs[2])
+        with torch.cuda.stream(s3):
+            graphs[1].replay()
+        _wait_or_fail((s1, s2, s3), 60.0, "K1 replays beside a direct call")
+        for got, y in zip((*static, direct), want):
+            torch.testing.assert_close(got, y, atol=TOL, rtol=0)
 
 
 def test_k1_kernel_is_one_launch(dev):
@@ -349,7 +408,14 @@ def _msa_inputs(seed, shape, dev, with_mask):
     ((2, 7, 2, 6, 5), True), ((3, 4, 4, 9, 32), True),
     ((1, 20, 16, 49, 32), True), ((1, 1036, 16, 49, 4), False),
     ((2, 247, 16, 49, 8), True), ((1, 3, 2, 64, 3), True),
-    ((2, 5, 1, 1, 7), False)])
+    ((2, 5, 1, 1, 7), False),
+    # the largest tiles (N = 64, hd = 32); head widths that pad to each
+    # k step with a tail of 1..3 floats; one head; the 1/4 train site,
+    # B > 1 with a mask (w mod nW), many windows a block
+    ((2, 3, 4, 64, 32), True), ((1, 6, 2, 49, 1), True),
+    ((1, 6, 2, 49, 3), False), ((1, 6, 2, 49, 12), True),
+    ((1, 6, 2, 49, 20), False), ((1, 6, 2, 49, 31), True),
+    ((2, 5, 1, 49, 16), True), ((2, 962, 16, 49, 4), True)])
 def test_k3_kernel_matches_plain(dev, shape, with_mask):
     q, k, v, bias, mask = _msa_inputs(9, shape, dev, with_mask)
     port_wm.reset_counts()
@@ -360,6 +426,91 @@ def test_k3_kernel_matches_plain(dev, shape, with_mask):
     assert got.shape == (B, nW, N, H * hd) and got.dtype == torch.float32
     want = port_wm.window_msa_plain(q, k, v, bias, mask)
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
+
+
+def test_k3_kernel_wide_logits(dev):
+    """q scaled x8, so that the logits span about +-50: the 3xTF32
+    products keep the 1e-4 bound where one TF32 pass would not."""
+    q, k, v, bias, mask = _msa_inputs(15, (1, 20, 16, 49, 4), dev, True)
+    q = q * 8
+    s = torch.einsum("bwhnd,bwhmd->bwhnm", q, k) + bias
+    assert float(s.amax()) > 40 and float(s.amin()) < -40
+    torch.testing.assert_close(
+        port_wm.window_msa_kernel(q, k, v, bias, mask),
+        port_wm.window_msa_plain(q, k, v, bias, mask), atol=TOL, rtol=0)
+
+
+def test_k3_kernel_rows_all_masked(dev):
+    """Rows whose every logit carries the -100 mask (the softmax is shift
+    invariant, so they equal the unmasked rows) beside partly masked
+    ones."""
+    q, k, v, bias, mask = _msa_inputs(16, (2, 6, 4, 49, 8), dev, True)
+    mask[:, ::5] = -100.0
+    got = port_wm.window_msa_kernel(q, k, v, bias, mask)
+    torch.testing.assert_close(
+        got, port_wm.window_msa_plain(q, k, v, bias, mask), atol=TOL, rtol=0)
+    plain = port_wm.window_msa_plain(q, k, v, bias, None)
+    torch.testing.assert_close(got[:, :, ::5], plain[:, :, ::5], atol=TOL,
+                               rtol=0)
+
+
+def test_k3_kernel_reruns_and_graph_replay_are_bit_equal(dev):
+    """Each output is summed in one fixed order: three reruns and a replay
+    of a CUDA graph that captured a call give the same bits."""
+    q, k, v, bias, mask = _msa_inputs(17, (1, 70, 16, 49, 16), dev, True)
+    first = port_wm.window_msa_kernel(q, k, v, bias, mask)
+    for _ in range(3):
+        assert torch.equal(port_wm.window_msa_kernel(q, k, v, bias, mask),
+                           first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        port_wm.window_msa_kernel(q, k, v, bias, mask)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        got = port_wm.window_msa_kernel(q, k, v, bias, mask)
+    got.zero_()
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(got, first)
+
+
+def test_k3_kernel_is_one_launch(dev):
+    """The profiler sees one CUDA kernel per call, at a site with one
+    window a block and at one with many."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    calls = [_msa_inputs(18, shape, dev, m) for shape, m in (
+        ((1, 20, 16, 49, 32), True), ((1, 1036, 16, 49, 4), False))]
+    for args in calls:
+        port_wm.window_msa_kernel(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for args in calls:
+            port_wm.window_msa_kernel(*args)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 2 and all("window_msa_kernel" in k
+                                     for k in kernels), kernels
+
+
+@pytest.mark.parametrize("hd", [8, 12, 5])
+def test_k3_kernel_unaligned_views(dev, hd):
+    """q, k, v that start 4 bytes into their storage: no row is 16-byte
+    aligned, so every element takes a 4-byte copy."""
+    q, k, v, bias, mask = _msa_inputs(19, (2, 9, 4, 49, hd), dev, True)
+    shifted = []
+    for t in (q, k, v):
+        flat = torch.cat([t.reshape(-1)[:1], t.reshape(-1)])
+        shifted.append(flat[1:].view(t.shape))
+    assert not any(port_wm.rows_aligned(t) for t in shifted)
+    torch.testing.assert_close(
+        port_wm.window_msa_kernel(*shifted, bias, mask),
+        port_wm.window_msa_plain(q, k, v, bias, mask), atol=TOL, rtol=0)
 
 
 def test_k3_kernel_reads_strided_views_and_scales_q(dev):

@@ -250,6 +250,107 @@ def test_fence_rows_describe_the_view(make):
     assert len(wm.fence_rows(x)[1]) <= wm.FENCE_MAX_DIMS
 
 
+# K3's sites on the main-path config: the 768x1024 bs1 forward's 1/32 ref
+# layer and class layers, the class layers at bs2 704x1024 (B, nW, H, N, hd)
+K3_SITES = [(1, 20, 16, 49, 32), (1, 70, 16, 49, 16), (1, 266, 16, 49, 8),
+            (1, 1036, 16, 49, 4), (2, 70, 16, 49, 16), (2, 247, 16, 49, 8),
+            (2, 962, 16, 49, 4)]
+
+
+@pytest.mark.parametrize("per_sm", [1, 3, 8])
+@pytest.mark.parametrize("site", K3_SITES + [(2, 5, 1, 9, 3), (1, 1, 2, 64, 32)])
+def test_k3_launch_plan(site, per_sm):
+    """K3's grid at every site: one wave at the kernel's occupancy, each
+    head with the same G blocks, the windows dealt g, g + G, ... so that
+    every window has one block and no block owns more than `windows`, or
+    fewer than one less; two stages only where a block owns more than one
+    window."""
+    B, nW, H, N, hd = site
+    W = B * nW
+    plan = wm.launch_plan(B, nW, H, N, hd, True, 132, per_sm)
+    assert plan.grid % H == 0
+    G = plan.grid // H
+    assert plan.grid <= max(H, 132 * per_sm)
+    owned = [len(range(g, W, G)) for g in range(G)]
+    assert sum(owned) == W and min(owned) >= 1
+    assert max(owned) == plan.windows and min(owned) >= plan.windows - 1
+    # no fewer windows a block would fit the wave
+    assert plan.windows == 1 or \
+        -(-W // (plan.windows - 1)) * H > 132 * per_sm
+    assert plan.stages == (2 if plan.windows > 1 else 1)
+    assert plan.smem == wm.smem_bytes(N, wm.head_pad(hd), True, plan.stages)
+    assert plan.smem <= wm.SMEM_MAX
+
+
+def test_k3_launch_plan_main_path():
+    """At 132 SMs of 3 blocks: the 1/32 sites one window a block (320
+    blocks, one stage), the 1/4 site 44 windows a block in 2 stages."""
+    plan = wm.launch_plan(1, 20, 16, 49, 32, True, 132, 3)
+    assert (plan.grid, plan.windows, plan.stages) == (320, 1, 1)
+    assert plan.smem == 4 * (64 * 56 + 64 * 40 + 56 * 40 + 56 * 36
+                             + 64 * 56 + 8)
+    plan = wm.launch_plan(1, 1036, 16, 49, 4, False, 132, 3)
+    assert (plan.grid, plan.windows, plan.stages) == (24 * 16, 44, 2)
+    assert plan.smem == 4 * (64 * 56 + 2 * (64 * 8 + 56 * 8 + 56 * 12))
+
+
+def _banks_free(addrs, width):
+    """A warp's shared-memory read of `width` floats a lane (addresses in
+    floats) is served without a bank conflict: 32 lanes of 1 float, or
+    each half-warp of 2, touch 32 distinct banks."""
+    group = 32 // width
+    for h in range(0, 32, group):
+        banks = [(a + i) % 32 for a in addrs[h:h + group]
+                 for i in range(width)]
+        if len(set(banks)) != len(banks):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("hd", [1, 4, 8, 12, 16, 20, 24, 31, 32])
+@pytest.mark.parametrize("N", [1, 9, 16, 33, 49, 56, 64])
+def test_k3_smem_layout_reads_free_of_bank_conflicts(N, hd):
+    """The kernel's fragment reads from its carve-up: q, k and bias as
+    float2 at rows g (+ 8), columns 2t of an 8-column step; v as floats at
+    rows 2t and 2t + 1, columns g; every region and row 16-byte aligned,
+    so the 16-byte copies land aligned."""
+    lay = wm.smem_layout(N, wm.head_pad(hd), True)
+    lanes = [(lane >> 2, lane & 3) for lane in range(32)]
+    for stride in (lay["qs"], lay["bs"]):
+        for step in range(8):
+            assert _banks_free([g * stride + 8 * step + 2 * t
+                                for g, t in lanes], 2)
+    for odd in (0, 1):
+        for step in range(4):
+            assert _banks_free([(2 * t + odd) * lay["vs"] + 8 * step + g
+                                for g, t in lanes], 1)
+    for n in ("qs", "vs", "bs", "stage", "bias"):
+        assert lay[n] % 4 == 0, n
+    assert lay["np16"] >= N and lay["np8"] >= N
+    assert lay["qs"] >= wm.head_pad(hd) and lay["vs"] >= wm.head_pad(hd)
+    assert lay["bs"] >= lay["np8"]
+    assert wm.smem_bytes(N, wm.head_pad(hd), True, 2) <= wm.SMEM_MAX
+
+
+def test_k3_copy_path():
+    """16-byte copies where every (b, w, h, n) row starts 16-byte aligned:
+    contiguous q/k/v and the fused entry's views into its (W, N, 3C) qkv
+    product at hd = 4 and 8; 4-byte copies at hd = 3 (rows of 12 bytes) and
+    for a view 4 bytes into its storage."""
+    for hd in (4, 8):
+        q, k, v = wm._split_qkv(torch.zeros(6, 49, 3 * 16 * hd), 2, 16)
+        assert all(wm.rows_aligned(t) for t in (q, k, v))
+        assert not q.is_contiguous()
+    assert wm.rows_aligned(torch.zeros(1, 2, 3, 49, 8))
+    assert not wm.rows_aligned(torch.zeros(1, 2, 3, 49, 3))
+    q, _, _ = wm._split_qkv(torch.zeros(6, 49, 3 * 16 * 3), 2, 16)
+    assert not wm.rows_aligned(q)
+    flat = torch.zeros(2 * 3 * 4 * 49 * 8 + 1)
+    assert not wm.rows_aligned(flat[1:].view(2, 3, 4, 49, 8))
+    assert [wm.head_pad(hd) for hd in (1, 4, 8, 9, 16, 17, 24, 31, 32)] == \
+        [8, 8, 8, 16, 16, 24, 24, 32, 32]
+
+
 @pytest.fixture(scope="module")
 def tiny_sites():
     """One tiny-config forward of a port GlassRGBD whose dense encoder
