@@ -539,19 +539,29 @@ def phase_model(card: str):
 # serve phase
 # ---------------------------------------------------------------------------
 
-def phase_serve():
+SERVE_SIZES = {"wide": (720, 1280), "vga": (480, 640), "portrait": (1024, 768)}
+
+
+def write_serve_images(src: str) -> dict:
+    """The three seeded synthetic images of phase 5 (and phase 10's
+    depth-only serving) in `src`; returns name -> (h, w)."""
     from PIL import Image
-    from gwdepth_tpu_torch.predict import main as predict_main
 
     rng = np.random.default_rng(SEED + 2)
-    sizes = {"wide": (720, 1280), "vga": (480, 640), "portrait": (1024, 768)}
+    os.makedirs(src)
+    for name, (h, w) in SERVE_SIZES.items():
+        arr = (rng.random((h, w, 3)) * 255).astype(np.uint8)
+        Image.fromarray(arr).save(os.path.join(src, f"{name}.png"))
+    return SERVE_SIZES
+
+
+def phase_serve():
+    from gwdepth_tpu_torch.predict import main as predict_main
+
     with tempfile.TemporaryDirectory() as tmp:
         src = os.path.join(tmp, "images")
         dst = os.path.join(tmp, "out")
-        os.makedirs(src)
-        for name, (h, w) in sizes.items():
-            arr = (rng.random((h, w, 3)) * 255).astype(np.uint8)
-            Image.fromarray(arr).save(os.path.join(src, f"{name}.png"))
+        sizes = write_serve_images(src)
         torch.cuda.synchronize()
         _reset_counts()
         t0 = time.perf_counter()
@@ -930,7 +940,8 @@ def phase_train(card: str, tmp: str):
     prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
                           "step_ms", "train-profile")
     return runs, {"step_ms": step_ms, "matcher_ms": matcher_ms,
-                  "step_times": times, "profile": prof}
+                  "step_times": times, "profile": prof, "args": args,
+                  "root": root, "out": out, "n_val": n_val}
 
 
 def _train_grads(cfg, model, batch, dev, images=None):
@@ -1063,6 +1074,238 @@ def phase_train_card_vs_cpu() -> dict:
     assert ctl["max"] >= CONTROL_MARGIN * BF16_GRAD_REL_L2_MAX_TOL and \
         ctl["median"] >= CONTROL_MARGIN * BF16_GRAD_REL_L2_MEDIAN_TOL, ctl
     return out
+
+
+# ---------------------------------------------------------------------------
+# depth-only serving, eval outputs, line-only training (phases 10-12)
+# ---------------------------------------------------------------------------
+
+def k2_links_per_forward(model) -> int:
+    """K2 launches of one forward, counted from the model's modules: every
+    PyramidLayer that fuses runs its 12 trunk links (2 firstconv, 2 per
+    BasicBlock) and its `last0` where the concat is at most
+    FUSE_LAST0_MAX_CI channels wide."""
+    from gwdepth_tpu_torch.models import points
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, points.PyramidLayer) and m.use_pallas:
+            blocks = [b for layer in (m.layer1, m.layer2, m.layer3)
+                      for b in layer]
+            n += 2 + 2 * len(blocks) + int(
+                m.lastconv[0].conv.in_channels <= points.FUSE_LAST0_MAX_CI)
+    return n
+
+
+def phase_depth_only(card: str) -> dict:
+    """The depth-only model (`with_line=False`) serving at 768x1024 bs1
+    with `use_pallas`: launch counts of one forward (no K1: its 1/32
+    layer is plain Swin attention; K2 as counted from the modules; no K3
+    or K4), outputs against the port's CPU run of the same weights, the
+    median forward time and its device profile; then `predict --no_line
+    --save_vis` on phase 5's three images."""
+    from PIL import Image
+    from gwdepth_tpu_torch.predict import main as predict_main
+
+    cfg = GWDepthConfig(with_line=False, dropout=0.0, use_pallas=True)
+    log(f"[depth-only] GlassRGBD with_line=False, use_pallas, at "
+        f"{H_IMG}x{W_IMG} bs1, random weights from seed {SEED}")
+    model_cpu = build_glassrgbd(cfg, SEED, device="cpu")
+    model = copy.deepcopy(model_cpu).to("cuda")
+    k2_want = k2_links_per_forward(model)
+    rng = np.random.default_rng(SEED + 1)
+    img = torch.from_numpy(
+        rng.normal(size=(1, H_IMG, W_IMG, 3)).astype(np.float32))
+    x = img.to("cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        n = _counts()
+    log(f"[depth-only] launches in one forward: {n}; K2 counted from the "
+        f"modules: {k2_want}")
+    assert n["k1"] == 0 and n["k3"] == 0 and n["k4"] == 0, n
+    assert n["k2"] == k2_want, (n, k2_want)
+    assert out["pred_logits"] is None and out["pred_lines"] is None
+    assert tuple(out["pred_seg"].shape) == (1, H_IMG, W_IMG, 2)
+    depth_shapes = [(1, H_IMG // s, W_IMG // s) for s in (16, 8, 4, 1)]
+    for d, shp in zip(out["pred_depth"], depth_shapes):
+        assert tuple(d.shape) == shp and torch.isfinite(d).all(), d.shape
+    assert torch.isfinite(out["pred_seg"]).all()
+
+    fwd_ms = _forward_median_ms(model, x)
+    log(f"[depth-only] forward bs1 {H_IMG}x{W_IMG}: median {fwd_ms:.3f} ms "
+        f"over 10 runs on {card}")
+    with torch.no_grad():
+        prof = profile_device(lambda: model(x), fwd_ms, "forward_ms",
+                              "depth-only-profile")
+    assert not prof or prof["k1_kernels"] == 0, prof
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out_cpu = model_cpu(img)
+    log(f"[depth-only] CPU forward of the same port: "
+        f"{time.perf_counter() - t0:.1f} s")
+    cmp = {f"pred_depth[{i}]": _rel_l2(a.cpu(), b) for i, (a, b) in
+           enumerate(zip(out["pred_depth"], out_cpu["pred_depth"]))}
+    cmp["pred_seg"] = _rel_l2(out["pred_seg"].cpu(), out_cpu["pred_seg"])
+    log("[depth-only] card vs CPU, relative L2: " + json.dumps(cmp))
+    for k, v in cmp.items():
+        assert v <= DENSE_REL_L2_TOL, f"{k}: card vs CPU {v} > " \
+            f"{DENSE_REL_L2_TOL}"
+
+    with tempfile.TemporaryDirectory() as tmp:
+        src = os.path.join(tmp, "images")
+        dst = os.path.join(tmp, "out")
+        sizes = write_serve_images(src)
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        predict_main(["--images", src, "--output_dir", dst, "--device",
+                      "cuda", "--no_line", "--save_vis"])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        served = _counts()
+        want = {"k1": 0, "k2": k2_want * len(sizes), "k3": 0, "k4": 0}
+        assert {k: served[k] for k in want} == want, (served, want)
+        for name, (h, w) in sizes.items():
+            vis = np.asarray(Image.open(os.path.join(dst, f"{name}_vis.png")))
+            assert vis.shape == (h, w, 3) and vis.dtype == np.uint8, \
+                f"{name}_vis.png {vis.shape}"
+            with open(os.path.join(dst, f"{name}_lines.json")) as f:
+                assert json.load(f)["lines"] == []
+            depth = np.load(os.path.join(dst, f"{name}_depth.npy"))
+            assert depth.shape == (h, w) and np.isfinite(depth).all()
+    log(f"[depth-only] {len(sizes)} images through predict.main --no_line "
+        f"--save_vis in {secs:.1f} s; launches {served}")
+    return {"launches": n, "k2_counted": k2_want, "forward_ms": fwd_ms,
+            "profile": prof, "card_vs_cpu": cmp, "served": served}
+
+
+def phase_eval_outputs(train: dict) -> dict:
+    """`main.main --eval --benchmark --dump_gt_lines --save_dense
+    --save_line` on the card, from phase 7's checkpoint and validation
+    scenes: one prediction npz, one GT npz, one dense grid and one line
+    overlay per image; the GT written back as predictions scores sAP 100;
+    prints the run's sAP, F-score and APH."""
+    from PIL import Image
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.evaluation import (aph_score, fscore_score,
+                                              sap_score)
+
+    out, n_val = train["out"], train["n_val"]
+    cfg = train_main.config_from_args(
+        train_main.build_argparser().parse_args(train["args"]))
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    train_main.main(train["args"] + ["--eval", "--benchmark",
+                                     "--dump_gt_lines", "--save_dense",
+                                     "--save_line"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _counts()
+    want = {"k1": K1_PER_FORWARD * n_val, "k2": K2_FWD_PER_FORWARD * n_val,
+            "k2_bwd": 0, "k3": 0, "k4": 0, "matcher_calls": n_val}
+    log(f"[eval] main.main --eval with the outputs: {secs:.1f} s, launches "
+        f"{n}")
+    assert n == want, (n, want)
+
+    with open(cfg.filenames_file_eval) as f:
+        names = sorted(ln.split()[0] for ln in f if ln.strip())
+    pred_dir = os.path.join(out, "benchmark", "benchmark_val")
+    gt_dir = os.path.join(out, "lines_npz", "eval")
+    for sub, ext in ((pred_dir, ".npz"), (gt_dir, ".npz"),
+                     (os.path.join(out, "dense_pred"), ".png"),
+                     (os.path.join(out, "line_pred"), ".png")):
+        assert sorted(os.listdir(sub)) == [nm + ext for nm in names], sub
+    ch, cw = cfg.eval_hw
+    for nm in names:
+        with np.load(os.path.join(pred_dir, nm + ".npz")) as z:
+            assert set(z.files) == {"lines", "score"}, z.files
+            assert z["lines"].shape == (cfg.num_queries, 2, 2)
+            assert z["score"].shape == (cfg.num_queries,)
+            assert np.isfinite(z["lines"]).all()
+            assert (np.diff(z["score"]) <= 0).all(), "scores not descending"
+        with np.load(os.path.join(gt_dir, nm + ".npz")) as z:
+            assert set(z.files) == {"lpos", "file_name", "image_id"}
+            assert z["lpos"].ndim == 3 and z["lpos"].shape[1:] == (2, 2)
+            assert str(z["file_name"]) == nm
+        dense = np.asarray(Image.open(os.path.join(out, "dense_pred",
+                                                   nm + ".png")))
+        assert dense.shape == (2 * ch, 3 * cw, 3), dense.shape
+        line = np.asarray(Image.open(os.path.join(out, "line_pred",
+                                                  nm + ".png")))
+        assert line.shape == (ch, 2 * cw, 3), line.shape
+
+    perfect = os.path.join(out, "perfect")
+    os.makedirs(perfect)
+    for nm in names:
+        with np.load(os.path.join(gt_dir, nm + ".npz")) as z:
+            np.savez(os.path.join(perfect, nm + ".npz"), lines=z["lpos"],
+                     score=np.ones(len(z["lpos"])))
+    ideal = sap_score(perfect, gt_dir)
+    assert ideal == {5: 100.0, 10: 100.0, 15: 100.0}, ideal
+    scores = {"sAP": sap_score(pred_dir, gt_dir),
+              "F": fscore_score(pred_dir, gt_dir),
+              "APH": aph_score(pred_dir, gt_dir)}
+    log("[eval] line scores of the trained run: " + json.dumps(
+        {k: ({str(t): v for t, v in s.items()} if isinstance(s, dict)
+             else s) for k, s in scores.items()}))
+    return {"seconds": secs, "launches": n, "scores": scores}
+
+
+def phase_line_only(train: dict) -> dict:
+    """A 2-step `main.main` run of the line-only model (`--with_line
+    --with_center`, no `--with_dense`, `--use_pallas`) on the card on
+    phase 7's scenes, then eval: no dense module is built, so no kernel
+    launches; the logs carry the train line losses only (the eval of a
+    line-only model reports nothing, as the JAX package's)."""
+    from gwdepth_tpu_torch import main as train_main
+
+    root, tmp = train["root"], os.path.dirname(train["out"])
+    with open(os.path.join(root, "train.txt")) as f:
+        names = [ln for ln in f if ln.strip()][:2 * TRAIN_BS]
+    two_steps = os.path.join(tmp, "train_line_only.txt")
+    with open(two_steps, "w") as f:
+        f.writelines(names)
+    out = os.path.join(tmp, "line_only")
+    args = ["--device", "cuda", "--use_pallas", "--with_line",
+            "--with_center", "--num_workers", "4", "--output_dir", out,
+            "--data_path", f"{root}/rgb", "--gt_depth_path", f"{root}/depth",
+            "--gt_seg_path", f"{root}/seg", "--gt_line_path", f"{root}/lines",
+            "--filenames_file_train", two_steps,
+            "--filenames_file_eval", f"{root}/val.txt", "--epochs", "1"]
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    state = train_main.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _counts()
+    cfg = state.model.cfg
+    assert cfg.with_line and not cfg.with_dense
+    n_val = train["n_val"]
+    want = {"k1": 0, "k2": 0, "k2_bwd": 0, "k3": 0, "k4": 0,
+            "matcher_calls": 2 + n_val}
+    log(f"[line-only] main.main 2 steps + eval: {secs:.1f} s, launches {n}")
+    assert n == want and state.step == 2, (n, want, state.step)
+    logs = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    keys = {k for k in logs[0] if k.startswith("train_")}
+    aux = range(cfg.dec_layers - 1)
+    assert keys == {"train_loss", "train_loss_ce", "train_loss_line",
+                    "train_cardinality_error",
+                    *(f"train_loss_ce_{i}" for i in aux),
+                    *(f"train_loss_line_{i}" for i in aux)}, keys
+    assert not any(k.startswith("test_") for k in logs[0]), logs[0]
+    assert all(np.isfinite(v) for v in logs[0].values()), logs[0]
+    assert not any(k.startswith("dense") or k.startswith("depth_decoder")
+                   for k in state.model.state_dict())
+    assert os.path.exists(os.path.join(out, "input_log", "input_epoch0.png"))
+    log(f"[line-only] log.txt: loss {logs[0]['train_loss']}, loss_ce "
+        f"{logs[0]['train_loss_ce']}")
+    return {"seconds": secs, "launches": n}
 
 
 # ---------------------------------------------------------------------------
@@ -1542,9 +1785,12 @@ def main(argv=None) -> None:
         k2 = phase_k2(rng, dev)
     k1_n, k2_n, k2_links, k34_n = phase_model(card)
     phase_serve()
+    depth_only = phase_depth_only(card)
     k2_train, k1_train = phase_backward(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
+        evals = phase_eval_outputs(train)
+        line_only = phase_line_only(train)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
 
@@ -1642,6 +1888,15 @@ def main(argv=None) -> None:
          "plain_convs_ms": train_bwd("plain_convs_ms")},
         *window_kernel_entries(win, k34_n, run, copy_kernels),
     ]
+    # launches on this slice's paths, each counted from 0 over its run
+    count_key = {"ref_attn_diffusion": "k1", "conv3x3_ln_act": "k2",
+                 "conv3x3_ln_act_backward": "k2_bwd", "window_msa": "k3",
+                 "layout_fence": "k4"}
+    for entry in kernels:
+        key = count_key[entry["name"]]
+        entry["depth_only_launches"] = depth_only["launches"][key]
+        entry["eval_outputs_launches"] = evals["launches"][key]
+        entry["line_only_launches"] = line_only["launches"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -1673,7 +1928,16 @@ def main(argv=None) -> None:
         "F.scaled_dot_product_attention with a float attn_mask, K4's "
         "Tensor.copy_; K3's bound_frac = bound_ms / device_ms, "
         "cold_device_ms summed over the sites, each the median of 10 calls "
-        "after a 128 MB write.")
+        "after a 128 MB write. depth_only_launches: one forward of the "
+        "depth-only model (phase 10); eval_outputs_launches: main.main "
+        "--eval with the benchmark, GT, dense and line outputs over 2 "
+        "validation scenes (phase 11); line_only_launches: the line-only "
+        "model's 2 train steps and eval (phase 12).")
+    dprof = depth_only["profile"]
+    log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
+        f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "
+        f"idle share {dprof.get('device_idle_share', float('nan')):.4f}, "
+        f"K2 {depth_only['launches']['k2']} launches on {card}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

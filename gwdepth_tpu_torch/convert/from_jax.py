@@ -12,7 +12,14 @@ where in the flax leaves, so every transpose and reshape inverts exactly.
 
 Layout rules of the map: conv (O, I, kh, kw) -> (kh, kw, I, O), linear
 (O, I) -> (I, O), norms and biases verbatim, the fused attention
-`in_proj_*` verbatim.
+`in_proj_*` verbatim. The learned position tables
+`backbone.1.{row,col}_embed.weight` (the names DETR's `Joiner` gives
+them) map to `position_embedding/{row,col}_embed` verbatim; the JAX
+package's own converters map no name onto those two leaves.
+
+Models with a gate off (`with_line=False`, `with_dense=False`) have no
+tensors of the missing branch in their state dict, so the template asks
+for none of them.
 
     sd = jax_params_to_state_dict(params_numpy_tree, model.state_dict())
     model.load_state_dict(sd, strict=True)
@@ -199,6 +206,9 @@ def torch_names_to_flax(state: Mapping[str, np.ndarray]) -> dict:
         head = parts[0]
         if key.startswith("backbone.0.body."):
             _map_resnet(params, parts[3:], val)
+        elif key.startswith("backbone.1."):
+            # DETR's Joiner: the learned position tables, (50, F) both sides
+            _set(params, f"position_embedding/{parts[2]}", val)
         elif head == "query_embed":
             params["query_embed"] = val
         elif head in ("input_proj", "dense_input_proj"):

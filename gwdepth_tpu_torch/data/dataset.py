@@ -69,6 +69,13 @@ class GlassRGBDDataset:
                       else cfg.filenames_file_eval)
         with open(names_file) as f:
             self.names = [ln.split()[0] for ln in f if ln.strip()]
+        # image id -> name, for the GT line dumps' `image_id`
+        self.id_to_img = {}
+        if cfg.glassrgbd_images_json and os.path.exists(
+                cfg.glassrgbd_images_json):
+            with open(cfg.glassrgbd_images_json) as f:
+                for d in json.load(f).get("images", []):
+                    self.id_to_img[d["id"]] = d["file_name"].split(".")[0]
 
     def __len__(self) -> int:
         return len(self.names)

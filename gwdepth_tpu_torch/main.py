@@ -11,11 +11,19 @@ versions). It writes the same `log.txt` JSON lines and
       --gt_line_path ... --filenames_file_train ... --filenames_file_eval ... \\
       --with_line --with_dense --with_center --num_queries 100
 
+Eval outputs, as the JAX CLI writes them under `<output_dir>`:
+`--dump_gt_lines` the GT line npz files (`lines_npz/eval`), and with
+`--eval`: `--benchmark` one prediction npz per image
+(`benchmark/benchmark_val`, for `evaluation.sap_score`, `fscore_score`
+and `aph_score`), `--save_dense` the depth/seg grids (`dense_pred`),
+`--save_line` the predicted-vs-GT line overlays (`line_pred`). Training
+writes the first batch's label overlay per epoch to `input_log`.
+
 Flags of the JAX CLI that this port does not carry yet stop the run with
 an error instead of being ignored: `--mesh` other than one device,
-`--bf16`, `--remat`, `--coco_path`, `--frozen_weights`, `--benchmark`,
-`--save_dense`, `--save_line`, `--dump_gt_lines`, and the model gates
-the port does not build (see `_refuse`). `--matcher` is accepted with
+`--bf16`, `--remat`, `--coco_path`, `--frozen_weights`, `--pre_norm`
+(which no JAX model reads either), and the model gates the port does
+not build (see `_refuse`). `--matcher` is accepted with
 either value: the port always solves the assignment exactly on the host.
 `--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
 K2) as the JAX CLI routes it through its Pallas kernels; without it the
@@ -144,8 +152,7 @@ def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
 def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
     """Stop on a flag the port does not carry yet."""
     unsupported = [f"--{name}" for name in (
-        "bf16", "remat", "coco_path", "frozen_weights", "benchmark",
-        "save_dense", "save_line", "dump_gt_lines", "pre_norm",
+        "bf16", "remat", "coco_path", "frozen_weights", "pre_norm",
         "with_plane_norm_loss", "with_reflection", "with_dense_center",
         "with_line_depth") if getattr(args, name)]
     if cfg.mesh_shape not in ((-1,), (1,)):
@@ -155,20 +162,21 @@ def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
                          "PyTorch port yet")
 
 
-def load_torch_init(model, path: str) -> int:
-    """Warm start from an original-code checkpoint: every tensor whose
-    name and shape match loads (a full GlassRGBD checkpoint, or a DETR-R50
-    one for its backbone, transformer and heads)."""
-    import torch
-    from gwdepth_tpu_torch.predict import _normalize_keys
+def dump_line_predictions(cfg: GWDepthConfig, line_dumps, out_dir: str
+                          ) -> None:
+    """One benchmark npz per image from `evaluate`'s `line_dumps`: the
+    lines, normalized over the canvas, renormalized over the image's
+    extent on it."""
+    from gwdepth_tpu_torch.evaluation import dump_benchmark_npz
 
-    raw = torch.load(path, map_location="cpu", weights_only=False)
-    sd = _normalize_keys(raw.get("model", raw))
-    own = model.state_dict()
-    keep = {k: v for k, v in sd.items()
-            if k in own and tuple(v.shape) == tuple(own[k].shape)}
-    model.load_state_dict(keep, strict=False)
-    return len(keep)
+    ch, cw = cfg.eval_hw
+    for d in line_dumps:
+        ih, iw = [int(v) for v in d["extent"]]
+        lines = np.asarray(d["pred_lines"], np.float64).copy()
+        lines[:, 0::2] *= cw / max(iw, 1)
+        lines[:, 1::2] *= ch / max(ih, 1)
+        dump_benchmark_npz(out_dir, d["name"], d["pred_logits"], lines,
+                           (ih, iw))
 
 
 def main(argv=None):
@@ -180,9 +188,11 @@ def main(argv=None):
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.engine import (evaluate, format_eval_line,
                                           train_one_epoch)
+    from gwdepth_tpu_torch.evaluation import dump_gt_lines
     from gwdepth_tpu_torch.models import build_glassrgbd
     from gwdepth_tpu_torch.parallel import (create_train_state,
                                             make_eval_step, make_train_step)
+    from gwdepth_tpu_torch.predict import load_original_checkpoint
     from gwdepth_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     restore_file)
     from gwdepth_tpu_torch.utils.logging import git_sha_banner
@@ -202,24 +212,43 @@ def main(argv=None):
 
     model = build_glassrgbd(cfg, seed, device="cpu")
     if args.torch_init:
-        n = load_torch_init(model, args.torch_init)
+        n = load_original_checkpoint(model, args.torch_init,
+                                     warm_start=True)
         print(f"warm start from {args.torch_init}: {n} tensors loaded")
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params, device: {device}")
 
-    eval_loader = Loader(GlassRGBDDataset(cfg, "val"),
-                         batch_size=args.eval_batch_size, shuffle=False,
-                         drop_last=False,
+    eval_ds = GlassRGBDDataset(cfg, "val")
+    eval_loader = Loader(eval_ds, batch_size=args.eval_batch_size,
+                         shuffle=False, drop_last=False,
                          pad_to_batch=args.eval_batch_size > 1,
                          num_workers=args.num_workers)
-    eval_step = make_eval_step(cfg)
+    eval_step = make_eval_step(cfg, return_dense=args.save_dense)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
+
+    if args.dump_gt_lines:
+        gt_dir = os.path.join(out_dir, "lines_npz", "eval")
+        n = dump_gt_lines(eval_ds, gt_dir)
+        print(f"GT line npz dumps ({n} images) -> {gt_dir}")
+        if not args.eval:
+            return {"gt_lines_dumped": n}
 
     if args.eval:
         state = create_train_state(cfg, model)
         CheckpointManager(ckpt_dir).restore(state)
-        stats = evaluate(cfg, model, eval_step, eval_loader, device)
+        stats = evaluate(
+            cfg, model, eval_step, eval_loader, device,
+            collect_lines=args.benchmark,
+            save_dense_dir=(os.path.join(out_dir, "dense_pred")
+                            if args.save_dense else None),
+            save_line_dir=(os.path.join(out_dir, "line_pred")
+                           if args.save_line else None))
+        if args.benchmark and cfg.with_line:
+            bench_dir = os.path.join(out_dir, "benchmark", "benchmark_val")
+            dump_line_predictions(cfg, stats.pop("line_dumps", []),
+                                  bench_dir)
+            print(f"benchmark npz dumps -> {bench_dir}")
         print(format_eval_line(0, stats))
         with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
             f.write(format_eval_line(0, stats) + "\n")
@@ -250,7 +279,9 @@ def main(argv=None):
     t0 = time.time()
     for epoch in range(start_epoch, cfg.epochs):
         state, train_stats = train_one_epoch(
-            state, train_step, train_loader, epoch, generator, device)
+            state, train_step, train_loader, epoch, generator, device,
+            vis_dir=os.path.join(out_dir, "input_log"),
+            with_center=cfg.with_center)
         ckpt.save(epoch, state, cfg)
         log = {"epoch": epoch,
                **{f"train_{k}": v for k, v in train_stats.items()}}

@@ -1,7 +1,9 @@
-"""Sine position embeddings (DETR-style), NHWC.
+"""Position embeddings (DETR-style), NHWC.
 
-`valid_mask` is True on VALID pixels. The line branch uses normalize=True;
-the dense encoder uses the un-normalized variant.
+Sine: `valid_mask` is True on VALID pixels. The line branch uses
+normalize=True; the dense encoder uses the un-normalized variant.
+Learned (`--position_embedding learned` or `v3`): `LearnedPosEmb2D`, row
+and column tables of 50 entries.
 """
 
 from __future__ import annotations
@@ -9,6 +11,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn as nn
 
 
 def _sine_embed(y_embed: torch.Tensor, x_embed: torch.Tensor,
@@ -42,3 +45,26 @@ def sine_posemb_from_mask_nhwc(valid_mask: torch.Tensor, num_pos_feats: int,
         y_embed = y_embed / (y_embed[:, -1:, :] + eps) * scale
         x_embed = x_embed / (x_embed[:, :, -1:] + eps) * scale
     return _sine_embed(y_embed, x_embed, num_pos_feats, temperature)
+
+
+class LearnedPosEmb2D(nn.Module):
+    """Learned absolute 2-D position embedding: tables `row_embed` and
+    `col_embed` of 50 rows each, uniform [0, 1) at init; the output
+    concatenates [col[:W], row[:H]] (feature maps past 50 in either
+    dimension are unsupported, as in the original). It ignores the
+    validity mask."""
+
+    def __init__(self, num_pos_feats: int = 256):
+        super().__init__()
+        self.row_embed = nn.Embedding(50, num_pos_feats)
+        self.col_embed = nn.Embedding(50, num_pos_feats)
+        nn.init.uniform_(self.row_embed.weight)
+        nn.init.uniform_(self.col_embed.weight)
+
+    def forward(self, B: int, H: int, W: int) -> torch.Tensor:
+        """-> (B, H, W, 2 * num_pos_feats)."""
+        F = self.row_embed.weight.shape[1]
+        pos = torch.cat([self.col_embed.weight[:W][None].expand(H, W, F),
+                         self.row_embed.weight[:H][:, None].expand(H, W, F)],
+                        dim=-1)
+        return pos[None].expand(B, H, W, 2 * F)

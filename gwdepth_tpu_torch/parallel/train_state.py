@@ -30,7 +30,9 @@ def param_group_label(name: str, param: nn.Parameter) -> str:
     """frozen | backbone | main for one named parameter of GlassRGBD."""
     if not param.requires_grad:
         return "frozen"
-    return "backbone" if name.startswith("backbone.") else "main"
+    # the learned position tables (`backbone.1.*`) train at `lr`, as the
+    # JAX package's `position_embedding` does
+    return "backbone" if name.startswith("backbone.0.") else "main"
 
 
 def param_groups(model: nn.Module, cfg: GWDepthConfig) -> List[Dict]:

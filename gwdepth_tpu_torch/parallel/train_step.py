@@ -146,10 +146,14 @@ def seg_confusion(pred_cls: torch.Tensor, gt: torch.Tensor,
     return counts[:-1].reshape(num_classes, num_classes).float()
 
 
-def make_eval_step(cfg: GWDepthConfig) -> Callable:
+def make_eval_step(cfg: GWDepthConfig, return_dense: bool = False
+                   ) -> Callable:
     """(model, batch) -> dict of device tensors: eval_losses (3,) summed
     over real images and eval_loss_count, depth_sums (10,), confusion
-    (2, 2), and the line outputs with each image's extent on the canvas."""
+    (2, 2), and the line outputs with each image's extent on the canvas.
+    `return_dense` adds the full-resolution depth `pred_depth_full`
+    (B, H, W) and the seg argmax `pred_seg_cls` (B, H, W), for
+    `--save_dense`."""
 
     @torch.no_grad()
     def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
@@ -180,8 +184,11 @@ def make_eval_step(cfg: GWDepthConfig) -> Callable:
             res["depth_sums"] = depth_error_sums(
                 depth, batch.depth, gt_valid, cfg.min_depth_eval,
                 cfg.max_depth_eval)
-            res["confusion"] = seg_confusion(outputs["pred_seg"].argmax(-1),
-                                             batch.seg, batch.valid)
+            pred_cls = outputs["pred_seg"].argmax(-1)
+            res["confusion"] = seg_confusion(pred_cls, batch.seg, batch.valid)
+            if return_dense:
+                res["pred_depth_full"] = depth
+                res["pred_seg_cls"] = pred_cls
         if cfg.with_line:
             res["pred_logits"] = outputs["pred_logits"]
             res["pred_lines"] = outputs["pred_lines"]

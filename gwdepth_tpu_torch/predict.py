@@ -9,7 +9,10 @@ Outputs per image `<name>`:
   <name>_depth.png    16-bit millimeters
   <name>_seg.png      8-bit {0, 255} glass mask
   <name>_lines.json   {"lines": [[x1,y1,x2,y2]...] original-pixel coords,
-                       "centers": [[x,y]...], "scores": [...]}
+                       "centers": [[x,y]...], "scores": [...]} (empty lists
+                      with --no_line)
+  <name>_vis.png      with --save_vis: the depth colormap with the kept
+                      lines drawn on it
 
 On the card the model runs kernels K1 and K2 (`use_pallas`, bf16 taps in
 K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
@@ -17,7 +20,7 @@ K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
 Usage:
   python -m gwdepth_tpu_torch.predict --images <dir|file> --output_dir out \
       [--torch_init <original.pth>] [--score 0.75] [--tiny] [--device cuda] \
-      [--no_pallas]
+      [--no_pallas] [--no_line] [--save_vis]
 """
 
 from __future__ import annotations
@@ -29,6 +32,8 @@ from typing import List, Tuple
 
 import numpy as np
 from PIL import Image
+
+from gwdepth_tpu_torch.utils.visualize import colorize_depth, draw_lines
 
 VALID_EXT = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
 
@@ -49,9 +54,10 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_w", type=int, default=0)
     p.add_argument("--tiny", action="store_true")
     p.add_argument("--save_vis", action="store_true",
-                   help="depth/line visualization (not in the port yet)")
+                   help="also write <name>_vis.png: depth colormap with "
+                        "the kept lines")
     p.add_argument("--no_line", action="store_true",
-                   help="depth/seg only (not built by the port yet)")
+                   help="the depth-only model (no line branch)")
     p.add_argument("--no_pallas", action="store_true",
                    help="kernel-free path: the model's plain float32 "
                         "formulations in place of kernels K1 and K2")
@@ -106,21 +112,31 @@ def _normalize_keys(sd):
     return out
 
 
-def load_original_checkpoint(model, path: str) -> List[str]:
-    """`load_state_dict` of an original-code checkpoint. Every tensor the
-    port holds must be present; keys of modules the original declares but
-    never calls are returned as unused."""
+def load_original_checkpoint(model, path: str,
+                             warm_start: bool = False) -> int:
+    """`load_state_dict` of an original-code checkpoint; returns the number
+    of its tensors loaded. Every tensor the port holds must be present (a
+    `relative_position_index` buffer excepted: the model computes it), and
+    a shape that differs raises; keys of modules the original declares but
+    never calls are left unused. With `warm_start` (the training CLI's
+    `--torch_init`), a checkpoint that lacks tensors of the model (a
+    DETR-R50 one, for the backbone, transformer and heads) loads instead
+    every tensor whose name and shape match."""
     import torch
 
     raw = torch.load(path, map_location="cpu", weights_only=False)
     sd = _normalize_keys(raw.get("model", raw))
-    res = model.load_state_dict(sd, strict=False)
-    missing = [k for k in res.missing_keys
-               if not k.endswith("relative_position_index")]
-    if missing:
+    own = model.state_dict()
+    missing = [k for k in own if k not in sd
+               and not k.endswith("relative_position_index")]
+    if missing and warm_start:
+        sd = {k: v for k, v in sd.items()
+              if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    elif missing:
         raise KeyError(f"{path} lacks {len(missing)} tensors of the model, "
                        f"e.g. {missing[:5]}")
-    return list(res.unexpected_keys)
+    model.load_state_dict(sd, strict=False)
+    return sum(k in own for k in sd)
 
 
 def config_from_args(args: argparse.Namespace):
@@ -132,6 +148,8 @@ def config_from_args(args: argparse.Namespace):
     cfg = tiny_test_config() if args.tiny else GWDepthConfig(dropout=0.0)
     if args.device == "cuda" and not args.no_pallas:
         cfg = cfg.replace(use_pallas=True)
+    if args.no_line:
+        cfg = cfg.replace(with_line=False)
     if args.eval_h and args.eval_w:
         cfg = cfg.replace(eval_hw=(args.eval_h, args.eval_w))
     return cfg
@@ -144,11 +162,6 @@ def main(argv=None):
                          "the PyTorch port yet; use --torch_init")
     if args.mesh > 1:
         raise SystemExit("--mesh is not supported by the PyTorch port yet")
-    if args.save_vis:
-        raise SystemExit("--save_vis is not supported by the PyTorch port "
-                         "yet")
-    if args.no_line:
-        raise SystemExit("--no_line is not built by the PyTorch port yet")
     import torch
     from gwdepth_tpu_torch.models import build_glassrgbd
 
@@ -164,8 +177,8 @@ def main(argv=None):
 
     model = build_glassrgbd(cfg, args.seed, device="cpu")
     if args.torch_init:
-        unused = load_original_checkpoint(model, args.torch_init)
-        print(f"loaded {args.torch_init} ({len(unused)} unused tensors)")
+        n = load_original_checkpoint(model, args.torch_init)
+        print(f"loaded {args.torch_init}: {n} tensors")
     else:
         print("WARNING: random weights (no --torch_init) - for pipeline "
               "smoke tests only")
@@ -188,8 +201,10 @@ def main(argv=None):
         with torch.no_grad():
             out = model(torch.from_numpy(np.stack(canvases)).to(args.device),
                         torch.from_numpy(np.stack(valids)).to(args.device))
-        outb = {"depth": out["pred_depth"][-1], "seg": out["pred_seg"],
-                "logits": out["pred_logits"], "lines": out["pred_lines"]}
+        outb = {"depth": out["pred_depth"][-1], "seg": out["pred_seg"]}
+        if out["pred_logits"] is not None:
+            outb["logits"] = out["pred_logits"]
+            outb["lines"] = out["pred_lines"]
         outb = {k: v.float().cpu().numpy() for k, v in outb.items()}
         for bi, (path, (ow, oh), (h, w)) in enumerate(metas):
             _emit_one(outb, bi, path, ow, oh, h, w, cfg, args)
@@ -215,21 +230,29 @@ def _emit_one(out, bi, path, ow, oh, h, w, cfg, args):
     Image.fromarray(seg_full).save(
         os.path.join(args.output_dir, f"{name}_seg.png"))
 
-    # lines are CANVAS-normalized; the real area is the top-left (h, w)
-    p = np.exp(out["logits"][bi])
-    p = p / p.sum(-1, keepdims=True)
-    scores = p[:, 0]
-    keep = scores > args.score
-    ln = out["lines"][bi][keep]
-    sx, sy = cw * (ow / w), ch * (oh / h)
-    rec = {"image": os.path.basename(path),
-           "lines": (ln[:, :4] * [sx, sy, sx, sy]).tolist(),
-           "centers": (ln[:, 4:6] * [sx, sy]).tolist()
-           if ln.shape[1] >= 6 else [],
-           "scores": scores[keep].tolist()}
+    rec = {"image": os.path.basename(path), "lines": [], "centers": [],
+           "scores": []}
+    if "logits" in out:
+        # lines are CANVAS-normalized; the real area is the top-left (h, w)
+        p = np.exp(out["logits"][bi])
+        p = p / p.sum(-1, keepdims=True)
+        scores = p[:, 0]
+        keep = scores > args.score
+        ln = out["lines"][bi][keep]
+        sx, sy = cw * (ow / w), ch * (oh / h)
+        rec["lines"] = (ln[:, :4] * [sx, sy, sx, sy]).tolist()
+        if ln.shape[1] >= 6:
+            rec["centers"] = (ln[:, 4:6] * [sx, sy]).tolist()
+        rec["scores"] = scores[keep].tolist()
     with open(os.path.join(args.output_dir, f"{name}_lines.json"), "w") as f:
         json.dump(rec, f)
 
+    if args.save_vis:
+        vis = colorize_depth(depth_full, cfg.max_depth)
+        if rec["lines"]:
+            vis = draw_lines(vis, np.asarray(rec["lines"]))
+        Image.fromarray(vis).save(
+            os.path.join(args.output_dir, f"{name}_vis.png"))
     print(f"{name}: depth [{depth_full.min():.2f}, "
           f"{depth_full.max():.2f}] m, {len(rec['lines'])} lines")
 

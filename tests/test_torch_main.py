@@ -111,8 +111,7 @@ def test_main_flags_and_defaults_match_jax():
 
 @pytest.mark.parametrize("flag", [
     ["--mesh", "4,2"], ["--mesh", "8"], ["--bf16"], ["--remat"],
-    ["--coco_path", "x"], ["--frozen_weights", "x.pth"], ["--benchmark"],
-    ["--save_dense"], ["--save_line"], ["--dump_gt_lines"], ["--pre_norm"],
+    ["--coco_path", "x"], ["--frozen_weights", "x.pth"], ["--pre_norm"],
     ["--with_plane_norm_loss"], ["--with_reflection"]])
 def test_main_refuses_what_the_port_lacks(tmp_path, flag):
     with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
@@ -126,6 +125,7 @@ def test_torch_init_and_weights_only_resume_load_original_names(tmp_path):
     from gwdepth_tpu_torch.config import tiny_test_config
     from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD, init_weights
     from gwdepth_tpu_torch.parallel import create_train_state
+    from gwdepth_tpu_torch.predict import load_original_checkpoint
     from gwdepth_tpu_torch.utils.checkpoint import restore_file
 
     cfg = tiny_test_config()
@@ -133,7 +133,8 @@ def test_torch_init_and_weights_only_resume_load_original_names(tmp_path):
     sd = {("module." + k).replace("lines_embed", "bbox_embed"): v
           for k, v in src.state_dict().items()}
     torch.save({"model": sd}, tmp_path / "orig.pth")
-    for load in (lambda m: pmain.load_torch_init(m, tmp_path / "orig.pth"),
+    for load in (lambda m: load_original_checkpoint(
+                     m, tmp_path / "orig.pth", warm_start=True),
                  lambda m: restore_file(create_train_state(cfg, m),
                                         tmp_path / "orig.pth")):
         model = init_weights(GlassRGBD(cfg), 6)
