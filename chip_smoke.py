@@ -11,7 +11,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               spill lines;
   3. kernels  hold each kernel against its plain PyTorch version on the
               card at every main-path shape, with seeded inputs (K2 in its
-              bf16-tap precision, `fast=True`); time the kernel, the plain
+              bf16-tap precision, `fast=True`; K1 also at the gated
+              forward's planes, the class-layer ones in its device-memory
+              schedule, two calls bit-equal); time the kernel, the plain
               version and a cuDNN/ATen composition of the same function
               (conv2d + layer_norm + activation; K2's in bf16 on
               channels-last, and as before in float32 on contiguous NCHW,
@@ -75,6 +77,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bound times per site, and K4's device time per site beside
               `Tensor.copy_`'s, with the profiler's name for what `copy_`
               runs.
+  10-12.    the depth-only model serving, the eval outputs and the
+              line-only training (see `phase_depth_only`,
+              `phase_eval_outputs`, `phase_line_only`);
+  13. gated  (run right after phase 10) the gated model (`GATED_CFG`:
+              group attention in every class block, token fusion in every
+              class layer, line-depth tokens, three reference points a
+              line) serving at 768x1024 bs1 with
+              `use_pallas`: K1 9 launches (4 at 1/32, 2 at 1/16, 2 at 1/8,
+              1 at 1/4), K2 25, no K3 or K4; card vs CPU at phase 4's
+              limits; median forward time, device busy time and idle
+              share; then one forward without point sampling (K1 6, K2 0).
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -263,35 +276,64 @@ def k2_library_bf16(x, w_cl, g, b, r, act):
     return y if r is None else y + r
 
 
-def phase_k1(rng, dev):
-    B, P, R, H = 1, 980, 40, 16
+# K1's planes: the serving forward's 1/32 plane first (the shipped model),
+# then the gated forward's (`GATED_CFG`): the 1/32 plane with three
+# reference points a line, the 1/16, 1/8 and 1/4 class planes (the band
+# schedule takes the 1/32 planes, the device-memory schedule the others),
+# and the 1/8 plane at B=2
+K1_SITES = [(1, 980, 40, 16), (1, 980, 60, 16), (1, 3430, 60, 16),
+            (1, 13034, 30, 16), (1, 50764, 80, 16), (2, 13034, 30, 16)]
+# K1 launches of one gated forward by plane
+GATED_K1 = {(1, 980, 60, 16): 4, (1, 3430, 60, 16): 2, (1, 13034, 30, 16): 2,
+            (1, 50764, 80, 16): 1}
+
+
+def k1_site(rng, dev, shape) -> dict:
+    """K1 at one plane shape against its plain version (K1_TOL), two calls
+    bit-equal, and its times: CUDA events (`*_ms`) and CUDA-graph replays
+    (`*device_ms`) of the kernel, the plain version and `diffusion_torch`
+    (the library yardstick), beside the bound."""
+    from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
+
+    B, P, R, H = shape
     a = torch.from_numpy(rng.normal(size=(B, P, R, H)).astype(np.float32))
     w = torch.from_numpy((rng.normal(size=(3, 3, H, H))
                           / np.sqrt(9 * H)).astype(np.float32))
     b = torch.from_numpy((0.1 * rng.normal(size=(H,))).astype(np.float32))
     a, w, b = a.to(dev), w.to(dev), b.to(dev)
+    plan = k1_mod.plan(B, P, R, H, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     got = ref_attn_diffusion(a, w, b)
     want = ref_attn_diffusion_plain(a, w, b)
     lib = diffusion_torch(a, w, b)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     lib_err = float((lib - want).abs().max())
-    assert torch.isfinite(got).all(), "K1 output not finite"
-    assert err <= K1_TOL, f"K1 max abs err {err} > {K1_TOL}"
+    assert torch.isfinite(got).all(), f"K1 {shape} output not finite"
+    assert err <= K1_TOL, f"K1 {shape} max abs err {err} > {K1_TOL}"
     again = ref_attn_diffusion(a, w, b)
-    assert torch.equal(again, got), "K1 is not deterministic"
+    assert torch.equal(again, got), f"K1 {shape} is not deterministic"
+    del want, lib, again
     flops = 3 * 2 * B * P * R * H * H * 9
     nbytes = 4 * (2 * B * P * R * H + 9 * H * H + H)
-    rec = {"name": "K1", "shape": [B, P, R, H], "max_err": err,
-           "library_max_err": lib_err,
+    rec = {"name": "K1", "shape": [B, P, R, H],
+           "schedule": ("device-memory" if isinstance(plan, k1_mod.TilePlan)
+                        else "band"),
+           "blocks": B * plan.nbp, "max_err": err, "library_max_err": lib_err,
            "kernel_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
-           "plain_ms": time_ms(lambda: ref_attn_diffusion_plain(a, w, b)),
+           "plain_ms": time_ms(lambda: ref_attn_diffusion_plain(a, w, b),
+                               reps=10),
            "library_ms": time_ms(lambda: diffusion_torch(a, w, b)),
            "device_ms": graph_ms(lambda: ref_attn_diffusion(a, w, b)),
            "library_device_ms": graph_ms(lambda: diffusion_torch(a, w, b)),
            **bound_fields(flops, nbytes)}
     log(json.dumps(rec))
     return rec
+
+
+def phase_k1(rng, dev) -> dict:
+    """`k1_site` at every plane of K1_SITES, keyed by shape."""
+    return {tuple(shape): k1_site(rng, dev, shape) for shape in K1_SITES}
 
 
 # main-path links of K2: (H, W, Ci, Co, act, residual); 1/8 head then 1/4
@@ -371,7 +413,7 @@ def phase_k2(rng, dev):
 # model phase
 # ---------------------------------------------------------------------------
 
-_K1_NAMES = ("diffusion_kernel",)
+_K1_NAMES = ("diffusion_kernel", "diffusion_tiled_kernel")
 _K2_NAMES = ("conv3x3_ln_act_kernel",)
 
 
@@ -1183,6 +1225,97 @@ def phase_depth_only(card: str) -> dict:
             "profile": prof, "card_vs_cpu": cmp, "served": served}
 
 
+# the gated serving forward: every dense-encoder gate the port builds
+GATED_CFG = dict(group_attention_layers=((True, True), (True, True), (True,)),
+                 class_tokenfuse_layers=(True, True, True),
+                 with_line_depth=True, with_dense_center=True)
+
+
+def phase_gated(card: str) -> dict:
+    """The gated model (`GATED_CFG`, `use_pallas`) serving at 768x1024
+    bs1, weights from the seed: launch counts of one forward (K1 9, by
+    plane as GATED_K1; K2 25; no K3 or K4), outputs against the port's
+    CPU run of the same weights at phase 4's limits, the median forward
+    time and its device profile (each K1 call one CUDA kernel); then one
+    forward without point sampling (`depth_sample_layers` all off), whose
+    1/8 and 1/4 class blocks get no reference points: K1 6, K2 0."""
+    cfg = GWDepthConfig(dropout=0.0, use_pallas=True, **GATED_CFG)
+    log(f"[gated] GlassRGBD {json.dumps(GATED_CFG)}, use_pallas, at "
+        f"{H_IMG}x{W_IMG} bs1, random weights from seed {SEED}")
+    model_cpu = build_glassrgbd(cfg, SEED, device="cpu")
+    model = copy.deepcopy(model_cpu).to("cuda")
+    rng = np.random.default_rng(SEED + 1)
+    img = torch.from_numpy(
+        rng.normal(size=(1, H_IMG, W_IMG, 3)).astype(np.float32))
+    x = img.to("cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        n = _counts()
+        planes = dict(ref_attn_diffusion.shape_launches)
+    log(f"[gated] launches in one forward: {n}; K1 by plane "
+        f"{sorted(planes.items())}")
+    assert {k: n[k] for k in ("k1", "k2", "k3", "k4")} == \
+        {"k1": sum(GATED_K1.values()), "k2": K2_FWD_PER_FORWARD,
+         "k3": 0, "k4": 0}, n
+    assert planes == GATED_K1, planes
+    Q = cfg.num_queries
+    expect = {"pred_logits": (1, Q, 2), "pred_lines": (1, Q, cfg.line_dim),
+              "pred_seg": (1, H_IMG, W_IMG, 2)}
+    for k, shp in expect.items():
+        assert tuple(out[k].shape) == shp and torch.isfinite(out[k]).all(), k
+    depth_shapes = [(1, H_IMG // s, W_IMG // s) for s in (16, 8, 4, 1)]
+    for d, shp in zip(out["pred_depth"], depth_shapes):
+        assert tuple(d.shape) == shp and torch.isfinite(d).all(), d.shape
+
+    fwd_ms = _forward_median_ms(model, x)
+    log(f"[gated] forward bs1 {H_IMG}x{W_IMG}: median {fwd_ms:.3f} ms over "
+        f"10 runs on {card}")
+    with torch.no_grad():
+        prof = profile_device(lambda: model(x), fwd_ms, "forward_ms",
+                              "gated-profile")
+    assert not prof or prof["k1_kernels"] == sum(GATED_K1.values()), prof
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out_cpu = model_cpu(img)
+    log(f"[gated] CPU forward of the same port: "
+        f"{time.perf_counter() - t0:.1f} s")
+    cmp = {}
+    for k in ("pred_logits", "pred_lines"):
+        cmp[k] = float((out[k].cpu() - out_cpu[k]).abs().max())
+        assert cmp[k] <= LINE_TOL, f"{k}: card vs CPU {cmp[k]} > {LINE_TOL}"
+    for i, (a, b) in enumerate(zip(out["pred_depth"], out_cpu["pred_depth"])):
+        cmp[f"pred_depth[{i}]"] = _rel_l2(a.cpu(), b)
+    cmp["pred_seg"] = _rel_l2(out["pred_seg"].cpu(), out_cpu["pred_seg"])
+    log("[gated] card vs CPU: " + json.dumps(cmp))
+    for k, v in cmp.items():
+        if k.startswith(("pred_depth", "pred_seg")):
+            assert v <= DENSE_REL_L2_TOL, \
+                f"{k}: card vs CPU rel L2 {v} > {DENSE_REL_L2_TOL}"
+    del model_cpu, out_cpu
+
+    # without point sampling: no point heads, no points below 1/16
+    nos = cfg.replace(depth_sample_layers=(False, False, False))
+    model = build_glassrgbd(nos, SEED, device="cpu").to("cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        _reset_counts()
+        out = model(x)
+        torch.cuda.synchronize()
+        n_nos = _counts()
+    log(f"[gated] depth_sample_layers all off: launches {n_nos}")
+    assert {k: n_nos[k] for k in ("k1", "k2", "k3", "k4")} == \
+        {"k1": 6, "k2": 0, "k3": 0, "k4": 0}, n_nos
+    for d, shp in zip(out["pred_depth"], depth_shapes):
+        assert tuple(d.shape) == shp and torch.isfinite(d).all(), d.shape
+    return {"launches": n, "planes": planes, "forward_ms": fwd_ms,
+            "profile": prof, "card_vs_cpu": cmp,
+            "no_sampling_launches": n_nos}
+
+
 def phase_eval_outputs(train: dict) -> dict:
     """`main.main --eval --benchmark --dump_gt_lines --save_dense
     --save_line` on the card, from phase 7's checkpoint and validation
@@ -1781,11 +1914,13 @@ def main(argv=None) -> None:
     rng = np.random.default_rng(SEED)
     check_k3_one_kernel(np.random.default_rng(SEED + 7))
     with torch.no_grad():
-        k1 = phase_k1(rng, dev)
+        k1_sites = phase_k1(rng, dev)
         k2 = phase_k2(rng, dev)
+    k1 = k1_sites[tuple(K1_SITES[0])]
     k1_n, k2_n, k2_links, k34_n = phase_model(card)
     phase_serve()
     depth_only = phase_depth_only(card)
+    gated = phase_gated(card)
     k2_train, k1_train = phase_backward(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
@@ -1818,6 +1953,11 @@ def main(argv=None) -> None:
     def train_bwd(field):
         return per_step("bwd", field)
 
+    def gated_k1(field):
+        """Sum over the gated forward's K1 planes of launches x `field`."""
+        return sum(n * k1_sites[shape][field]
+                   for shape, n in GATED_K1.items())
+
     k2_train_err = max(r["fwd"]["max_err"] for r in k2_train.values())
     k2_bwd_err = max(r["bwd"]["max_scaled_err"] for r in k2_train.values())
     run = runs["epoch0"]
@@ -1826,7 +1966,8 @@ def main(argv=None) -> None:
          "source": "gwdepth_tpu_torch/csrc/ref_attn_diffusion.cu",
          "replaces": "gwdepth_tpu/ops/pallas_kernels.py:112",
          "launches": k1_n,
-         "max_abs_err": max(k1["max_err"], k1_train["fwd"]["max_err"]),
+         "max_abs_err": max(k1_train["fwd"]["max_err"],
+                            max(r["max_err"] for r in k1_sites.values())),
          "ms": k1_n * k1["kernel_ms"], "plain_ms": k1_n * k1["plain_ms"],
          "bound_ms": k1_n * k1["bound_ms"], "bound_by": k1["bound_by"],
          "library_ms": k1_n * k1["library_ms"],
@@ -1846,7 +1987,18 @@ def main(argv=None) -> None:
          "train_backward_max_scaled_err": k1_train["bwd"]["max_scaled_err"],
          "train_backward_ms": K1_PER_FORWARD * k1_train["bwd"]["backward_ms"],
          "train_backward_plain_ms":
-             K1_PER_FORWARD * k1_train["bwd"]["plain_ms"]},
+             K1_PER_FORWARD * k1_train["bwd"]["plain_ms"],
+         "gated_ms": gated_k1("kernel_ms"),
+         "gated_plain_ms": gated_k1("plain_ms"),
+         "gated_bound_ms": gated_k1("bound_ms"),
+         "gated_bound_by": bound_by(gated_k1),
+         "gated_library_ms": gated_k1("library_ms"),
+         "gated_device_ms": gated_k1("device_ms"),
+         "gated_library_device_ms": gated_k1("library_device_ms"),
+         "sites": [{k: r[k] for k in (
+             "shape", "schedule", "blocks", "max_err", "kernel_ms",
+             "device_ms", "plain_ms", "library_ms", "library_device_ms",
+             "bound_ms", "bound_by")} for r in k1_sites.values()]},
         {"name": "conv3x3_ln_act", "route": "cuda",
          "source": "gwdepth_tpu_torch/csrc/conv3x3_ln_act.cu",
          "replaces": "gwdepth_tpu/ops/fused_conv.py:378",
@@ -1897,6 +2049,8 @@ def main(argv=None) -> None:
         entry["depth_only_launches"] = depth_only["launches"][key]
         entry["eval_outputs_launches"] = evals["launches"][key]
         entry["line_only_launches"] = line_only["launches"][key]
+        entry["gated_launches"] = gated["launches"][key]
+        entry["no_sampling_launches"] = gated["no_sampling_launches"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -1932,12 +2086,23 @@ def main(argv=None) -> None:
         "depth-only model (phase 10); eval_outputs_launches: main.main "
         "--eval with the benchmark, GT, dense and line outputs over 2 "
         "validation scenes (phase 11); line_only_launches: the line-only "
-        "model's 2 train steps and eval (phase 12).")
+        "model's 2 train steps and eval (phase 12). gated_launches: one "
+        "forward of the gated model (GATED_CFG), no_sampling_launches: one "
+        "without point sampling; K1's gated_* = the gated forward's planes, "
+        "launches x the per-call medians of its `sites` (phase 3, B=1; the "
+        "1/32 planes in the band schedule, the class planes in the "
+        "device-memory schedule).")
     dprof = depth_only["profile"]
     log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
         f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "
         f"idle share {dprof.get('device_idle_share', float('nan')):.4f}, "
         f"K2 {depth_only['launches']['k2']} launches on {card}")
+    gprof = gated["profile"]
+    log(f"[gated] forward median {gated['forward_ms']:.3f} ms, device busy "
+        f"{gprof.get('device_busy_ms', float('nan')):.3f} ms, idle share "
+        f"{gprof.get('device_idle_share', float('nan')):.4f}, K1 "
+        f"{gprof.get('k1_ms', float('nan')):.4f} ms in "
+        f"{gprof.get('k1_kernels')} kernels on {card}")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

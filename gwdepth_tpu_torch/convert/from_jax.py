@@ -19,7 +19,10 @@ package's own converters map no name onto those two leaves.
 
 Models with a gate off (`with_line=False`, `with_dense=False`) have no
 tensors of the missing branch in their state dict, so the template asks
-for none of them.
+for none of them. The dense encoder's gates add the class blocks'
+reference mixture (`attn.{ref_qk,diff_mu,diff_logsigma,
+ref_attn_diffusion}`, as in the 1/32 blocks), their `token_relation.*`,
+and `point_depth_token`, `init_token` and `gpgN.*`.
 
     sd = jax_params_to_state_dict(params_numpy_tree, model.state_dict())
     model.load_state_dict(sd, strict=True)
@@ -142,6 +145,23 @@ def _map_swin_attn(params, dst, rest, val):
             _set(params, f"{dst}/ref/ref_attn_diffusion/conv_bias", val)
 
 
+def _map_token_fuse(params, dst, rest, val):
+    """`token_relation` (PointGuidedTokenFuse) of a class block."""
+    name = rest[0]
+    if name in ("xseg_proj", "xdth_proj", "kv_refer_depth", "q_seg",
+                "mlpctx"):
+        _put_linear(params, f"{dst}/{name}/{rest[1]}", rest[2], val)
+    elif name in ("norm_seg", "norm_fuse") or name.startswith("convctx_norm"):
+        _put_norm(params, f"{dst}/{name}", rest[1], val)
+    elif name in ("fuse_proj", "fused_depth_proj", "mutil_depth_fuse"):
+        _put_linear(params, f"{dst}/{name}", rest[1], val)
+    elif name.startswith("convctx_pre"):
+        # Sequential(ConvA, ConvA) -> convctx_preK_{0,1}/conv
+        _put_conv(params, f"{dst}/{name}_{rest[1]}/conv", rest[3], val)
+    elif name.startswith("convctx_after"):
+        _put_conv(params, f"{dst}/{name}/conv", rest[2], val)
+
+
 def _map_swin_layer(params, dst, rest, val):
     if rest[0] != "blocks":
         return
@@ -153,6 +173,8 @@ def _map_swin_layer(params, dst, rest, val):
         _put_norm(params, f"{blk}/{name}", rest[3], val)
     elif name in ("mlp", "mlp_depth", "mlp_seg"):
         _put_linear(params, f"{blk}/{name}/{rest[3]}", rest[4], val)
+    elif name == "token_relation":
+        _map_token_fuse(params, f"{blk}/token_relation", rest[3:], val)
 
 
 def _map_dense_encoder(params, rest, val):
@@ -160,6 +182,12 @@ def _map_dense_encoder(params, rest, val):
     name = rest[0]
     if name in ("depth_token", "seg_token"):
         _set(params, f"{dst}/{name}", val.reshape(1, 1, -1))
+    elif name in ("point_depth_token", "init_token"):
+        _set(params, f"{dst}/{name}", val)
+    elif name.startswith("gpg"):
+        if rest[1] in ("node_relation", "node_attention", "token_node_fuse"):
+            _put_linear(params, f"{dst}/{name}/{rest[1]}/{rest[2]}",
+                        rest[3], val)
     elif name == "dense_transformer" or name.startswith("class_transformer"):
         _map_swin_layer(params, f"{dst}/{name}", rest[1:], val)
     elif name.startswith("depth_pred"):

@@ -22,8 +22,11 @@ writes the first batch's label overlay per epoch to `input_log`.
 Flags of the JAX CLI that this port does not carry yet stop the run with
 an error instead of being ignored: `--mesh` other than one device,
 `--bf16`, `--remat`, `--coco_path`, `--frozen_weights`, `--pre_norm`
-(which no JAX model reads either), and the model gates the port does
-not build (see `_refuse`). `--matcher` is accepted with
+(which no JAX model reads either), and `--with_reflection` and
+`--with_plane_norm_loss`, a data input and a train loss in JAX (see
+`_refuse`). The dense encoder's gates `--with_dense_center`,
+`--with_line_depth` and `--class_tokenfuse_layers` reach the model.
+`--matcher` is accepted with
 either value: the port always solves the assignment exactly on the host.
 `--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
 K2) as the JAX CLI routes it through its Pallas kernels; without it the
@@ -153,8 +156,7 @@ def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
     """Stop on a flag the port does not carry yet."""
     unsupported = [f"--{name}" for name in (
         "bf16", "remat", "coco_path", "frozen_weights", "pre_norm",
-        "with_plane_norm_loss", "with_reflection", "with_dense_center",
-        "with_line_depth") if getattr(args, name)]
+        "with_plane_norm_loss", "with_reflection") if getattr(args, name)]
     if cfg.mesh_shape not in ((-1,), (1,)):
         unsupported.append(f"--mesh {args.mesh}")
     if unsupported:

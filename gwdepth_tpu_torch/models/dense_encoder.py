@@ -9,10 +9,28 @@
 
 The kernels run where `cfg.use_pallas` puts them, as in the JAX package;
 otherwise their plain float32 formulations run. Depth predictions here
-are normalized to (0, 1). Reference lines are the
-top `num_ref` queries by the raw class-0 logit, endpoints only. The port
-builds the shipped gates only: with_line, no line-depth tokens, no token
-fusion, no group attention, point sampling at every scale.
+are normalized to (0, 1). Reference lines are the top `num_ref` queries
+by the raw class-0 logit, their endpoints (and centers with
+`with_dense_center`).
+
+The gates, as the JAX package builds them:
+- `group_attention_layers`: a class block with group attention replaces
+  its queries by the reference mixture over the layer's reference points
+  (the lines at 1/16, the sampled depth points at 1/8 and 1/4; K1 on
+  their planes);
+- `class_tokenfuse_layers`: each block of the layer ends with the
+  point-guided depth-token fusion, with a sine position map of the
+  tokens' width;
+- `with_line_depth`: the depth tokens come from learned per-endpoint
+  tokens `point_depth_token` and a coarse grid `init_token` through
+  `gpg1..3` (`Global2PointGraph`), in place of the `depth_token`
+  parameter and the token reprojections; the seg tokens are upsampled
+  with no projection, the JAX package's repair of the original, whose
+  forward cannot run with this gate;
+- `depth_sample_layers`: off at a scale, no points are sampled there and
+  a linear head (`depth_pred8`, `depth_pred4`) replaces the point head.
+A block only builds the parameters its forward reads: group attention
+and token fusion exist where the layer has reference points.
 """
 
 from __future__ import annotations
@@ -21,26 +39,13 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
 from gwdepth_tpu_torch.config import GWDepthConfig
-from gwdepth_tpu_torch.models.points import (PointBasedPred, certain_sample,
-                                             conv2d_nhwc)
+from gwdepth_tpu_torch.models.geometry import ConvA, Global2PointGraph
+from gwdepth_tpu_torch.models.points import PointBasedPred, certain_sample
 from gwdepth_tpu_torch.models.swin import SwinLayer
 from gwdepth_tpu_torch.ops.interpolate import resize_nearest_nhwc
 from gwdepth_tpu_torch.ops.posemb import sine_posemb_from_mask_nhwc
-
-
-class ConvA(nn.Module):
-    """3x3 conv (with bias) + GELU, NHWC."""
-
-    def __init__(self, cin: int, cout: int):
-        super().__init__()
-        self.conv = nn.Conv2d(cin, cout, 3, padding=1)
-
-    def forward(self, x):
-        return F.gelu(conv2d_nhwc(x, self.conv.weight, self.conv.bias,
-                                  padding=1))
 
 
 class MlpNorm(nn.Module):
@@ -93,13 +98,6 @@ class DenseEncoder(nn.Module):
 
     def __init__(self, cfg: GWDepthConfig):
         super().__init__()
-        if cfg.with_line_depth or any(cfg.class_tokenfuse_layers) or \
-                any(any(g) for g in cfg.group_attention_layers) or \
-                not all(cfg.depth_sample_layers):
-            raise NotImplementedError(
-                "the port builds the shipped dense-encoder gates only "
-                "(no line-depth tokens, token fusion or group attention; "
-                "point sampling at every scale)")
         self.cfg = cfg
         D = cfg.dense_trans_dim
         tC = cfg.class_token_dim
@@ -107,35 +105,60 @@ class DenseEncoder(nn.Module):
         ws = cfg.window_size
         mr = cfg.mlp_ratio
         c1, c2, c3, _ = cfg.backbone_channels
+        sample = cfg.depth_sample_layers
         kind32 = "ref" if cfg.with_line else "plain"
         self.dense_transformer = SwinLayer(D, cfg.dense_trans_layers[0],
                                            heads, ws, mr, kind32,
                                            use_pallas=cfg.use_pallas)
         self.depth_pred32 = DepthHead(D, tC)
+        # which class layers get reference points: the lines at 1/16, the
+        # points sampled at 1/16 (kept at 1/4 unless resampled at 1/8)
+        has_ref = (cfg.with_line, sample[0], sample[0] or sample[1])
+
+        def class_layer(i, dim):
+            return SwinLayer(
+                dim, cfg.class_trans_layers[i], heads, ws, mr, "class", tC,
+                tuple(g and has_ref[i] for g in cfg.group_attention_layers[i]),
+                use_pallas=cfg.use_pallas,
+                token_fuse=cfg.class_tokenfuse_layers[i] and has_ref[i])
+
         self.proj_class1 = nn.Linear(D, D // 2)
         self.proj_backbn1 = ConvA(c3, D // 2)
         self.seg_token = nn.Parameter(torch.zeros(1, 1, tC))
-        self.depth_token = nn.Parameter(torch.zeros(1, 1, tC))
-        self.class_transformer1 = SwinLayer(D // 2, cfg.class_trans_layers[0],
-                                            heads, ws, mr, "class", tC)
+        if cfg.with_line_depth:
+            cis, nP = cfg.class_init_size, cfg.num_ref * 2
+            self.point_depth_token = nn.Parameter(torch.zeros(1, nP, tC))
+            self.init_token = nn.Parameter(torch.zeros(1, cis, cis, tC))
+            self.gpg1 = Global2PointGraph(tC, nP, cis, 1)
+            self.gpg2 = Global2PointGraph(tC, nP, cis, 2)
+            self.gpg3 = Global2PointGraph(tC, nP, cis, 4)
+        else:
+            self.depth_token = nn.Parameter(torch.zeros(1, 1, tC))
+        self.class_transformer1 = class_layer(0, D // 2)
         self.depth_pred16 = DepthHead(D // 2 + tC, tC)
         self.proj_class2 = nn.Linear(D // 2, D // 4)
         self.proj_backbn2 = ConvA(c2, D // 4)
-        self.old_depth_token_proj8 = MlpNorm(tC, tC * 2, tC)
-        self.old_seg_token_proj8 = MlpNorm(tC, tC * 2, tC)
-        self.class_transformer2 = SwinLayer(D // 4, cfg.class_trans_layers[1],
-                                            heads, ws, mr, "class", tC)
+        if not cfg.with_line_depth:
+            self.old_depth_token_proj8 = MlpNorm(tC, tC * 2, tC)
+            self.old_seg_token_proj8 = MlpNorm(tC, tC * 2, tC)
+        self.class_transformer2 = class_layer(1, D // 4)
         pools = (16, 8, 4, 2)
-        self.point_based_pred1 = PointBasedPred(
-            D // 4, tC, pools, cfg.interval_sample_num[0], cfg.use_pallas)
+        if sample[0]:
+            self.point_based_pred1 = PointBasedPred(
+                D // 4, tC, pools, cfg.interval_sample_num[0], cfg.use_pallas)
+        else:
+            self.depth_pred8 = DepthHead(D // 4 + tC, tC)
         self.proj_class3 = nn.Linear(D // 4, D // 8)
         self.proj_backbn3 = ConvA(c1, D // 8)
-        self.old_depth_token_proj4 = MlpNorm(tC, tC * 2, tC)
-        self.old_seg_token_proj4 = MlpNorm(tC, tC * 2, tC)
-        self.class_transformer3 = SwinLayer(D // 8, cfg.class_trans_layers[2],
-                                            heads, ws, mr, "class", tC)
-        self.point_based_pred2 = PointBasedPred(
-            D // 8, tC, pools, cfg.interval_sample_num[1], cfg.use_pallas)
+        if not cfg.with_line_depth:
+            self.old_depth_token_proj4 = MlpNorm(tC, tC * 2, tC)
+            self.old_seg_token_proj4 = MlpNorm(tC, tC * 2, tC)
+        self.class_transformer3 = class_layer(2, D // 8)
+        if sample[2]:
+            self.point_based_pred2 = PointBasedPred(
+                D // 8, tC, pools, cfg.interval_sample_num[1], cfg.use_pallas)
+        else:
+            self.depth_pred4 = DepthHead(D // 8 + tC, tC)
 
     def forward(self, top_feat: torch.Tensor, pyramid: Sequence[torch.Tensor],
                 masks: Sequence[torch.Tensor],
@@ -150,6 +173,8 @@ class DenseEncoder(nn.Module):
         tC = cfg.class_token_dim
         B = top_feat.shape[0]
         dt = top_feat.dtype
+        sample = cfg.depth_sample_layers
+        tokfuse = cfg.class_tokenfuse_layers
         ref = None
         if cfg.with_line and pred_logits is not None:
             ref = select_reference_points(pred_lines, pred_logits,
@@ -158,9 +183,22 @@ class DenseEncoder(nn.Module):
         def posmap(mask, feats):
             return sine_posemb_from_mask_nhwc(mask, feats // 2).to(dt)
 
-        def sample(d_small, d_large, n):
+        def certain(d_small, d_large, n):
             return certain_sample(d_small, d_large, cfg.depth_interval, n,
                                   cfg.min_depth_eval / cfg.max_depth_eval)
+
+        def tokens(i, depth_token, seg_token, hw):
+            """The token streams carried to scale i (2: 1/8, 3: 1/4)."""
+            if cfg.with_line_depth:
+                gpg = self.gpg2 if i == 2 else self.gpg3
+                return (gpg(depth_token, point_token, *hw).reshape(
+                            B, *hw, tC),
+                        _up_nhwc(seg_token, hw))
+            scale = 8 if i == 2 else 4
+            return (getattr(self, f"old_depth_token_proj{scale}")(
+                        _up_nhwc(depth_token, hw)),
+                    getattr(self, f"old_seg_token_proj{scale}")(
+                        _up_nhwc(seg_token, hw)))
 
         # ---- 1/32 ----
         x, _, _ = self.dense_transformer(top_feat, ref_coords=ref,
@@ -174,37 +212,53 @@ class DenseEncoder(nn.Module):
         x = x + self.proj_backbn1(pyramid[2])
         pos1 = posmap(masks[2], D // 2)
         seg_token = self.seg_token[:, None].expand(B, h1, w1, tC).to(dt)
-        depth_token = self.depth_token[:, None].expand(B, h1, w1, tC).to(dt)
+        if cfg.with_line_depth:
+            point_token = self.point_depth_token.expand(B, -1, -1).to(dt)
+            init = self.init_token.expand(B, -1, -1, -1).to(dt)
+            depth_token = self.gpg1(init, point_token, h1, w1,
+                                    is_init=True).reshape(B, h1, w1, tC)
+        else:
+            depth_token = self.depth_token[:, None].expand(
+                B, h1, w1, tC).to(dt)
         x, depth_token, seg_token = self.class_transformer1(
             x, ref_coords=ref, ref_pos=pos1, depth_token=depth_token,
-            seg_token=seg_token)
+            seg_token=seg_token,
+            token_pos=posmap(masks[2], tC) if tokfuse[0] else None)
         d16 = self.depth_pred16(torch.cat([x, depth_token], dim=-1))[..., 0]
         feat16 = x
-        coords = sample(d32, d16, cfg.interval_sample_num[0])
+        coords = certain(d32, d16, cfg.interval_sample_num[0]) \
+            if sample[0] else None
 
         # ---- 1/8 ----
         h2, w2 = pyramid[1].shape[1:3]
         x = self.proj_class2(_up_nhwc(feat16, (h2, w2)))
         x = x + self.proj_backbn2(pyramid[1])
         pos2 = posmap(masks[1], D // 4)
-        depth_token = self.old_depth_token_proj8(_up_nhwc(depth_token, (h2, w2)))
-        seg_token = self.old_seg_token_proj8(_up_nhwc(seg_token, (h2, w2)))
+        depth_token, seg_token = tokens(2, depth_token, seg_token, (h2, w2))
         x, depth_token, seg_token = self.class_transformer2(
             x, ref_coords=coords, ref_pos=pos2, depth_token=depth_token,
-            seg_token=seg_token)
-        d8 = self.point_based_pred1(x, depth_token, d16, coords, pos2)
+            seg_token=seg_token,
+            token_pos=posmap(masks[1], tC) if tokfuse[1] else None)
+        if sample[0]:
+            d8 = self.point_based_pred1(x, depth_token, d16, coords, pos2)
+        else:
+            d8 = self.depth_pred8(torch.cat([x, depth_token], dim=-1))[..., 0]
         feat8 = x
-        coords = sample(d16, d8, cfg.interval_sample_num[1])
+        if sample[1]:
+            coords = certain(d16, d8, cfg.interval_sample_num[1])
 
         # ---- 1/4 ----
         h3, w3 = pyramid[0].shape[1:3]
         x = self.proj_class3(_up_nhwc(feat8, (h3, w3)))
         x = x + self.proj_backbn3(pyramid[0])
         pos3 = posmap(masks[0], D // 8)
-        depth_token = self.old_depth_token_proj4(_up_nhwc(depth_token, (h3, w3)))
-        seg_token = self.old_seg_token_proj4(_up_nhwc(seg_token, (h3, w3)))
+        depth_token, seg_token = tokens(3, depth_token, seg_token, (h3, w3))
         x, depth_token, seg_token = self.class_transformer3(
             x, ref_coords=coords, ref_pos=pos3, depth_token=depth_token,
-            seg_token=seg_token)
-        d4 = self.point_based_pred2(x, depth_token, d8, coords, pos3)
+            seg_token=seg_token,
+            token_pos=posmap(masks[0], tC) if tokfuse[2] else None)
+        if sample[2]:
+            d4 = self.point_based_pred2(x, depth_token, d8, coords, pos3)
+        else:
+            d4 = self.depth_pred4(torch.cat([x, depth_token], dim=-1))[..., 0]
         return [feat32, feat16, feat8, x], depth_token, seg_token, [d16, d8, d4]

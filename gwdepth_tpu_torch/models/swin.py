@@ -5,10 +5,12 @@
   attention map is diffused by kernel K1 (`ops/ref_attn_diffusion.py`)
   with `use_pallas`, as in the JAX package, else by `diffusion_torch`.
 - `WindowClassAttention`: W-MSA plus per-pixel depth/seg class-token
-  channel cross-attention.
+  channel cross-attention; with `group_attention` its queries are first
+  replaced by the same reference mixture (K1 at the class-layer planes).
 - `PlainWindowAttention`: vanilla Swin attention (line branch off).
 - `SwinBlock` / `SwinLayer`: pad -> cyclic shift -> window partition ->
-  attention -> reverse, with the reference-point coordinate roll.
+  attention -> reverse, with the reference-point coordinate roll; with
+  `token_fuse` a class block ends with `geometry.PointGuidedTokenFuse`.
 
 Kept quirks of the original code:
 - shifted ref coords below -1 are *reflected* (new = -2 - old), not
@@ -24,7 +26,7 @@ package's `ref` sub-module is flattened into `attn`, as there.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -120,7 +122,21 @@ class RefAttnDiffusion(nn.Module):
         return a.reshape(B, nW, N, R, H).permute(0, 1, 4, 2, 3)
 
 
-def ref_query_mixture(attn: "RefWindowAttention", q: torch.Tensor,
+class RefQuery:
+    """Owns the reference-mixture parameters (`ref_qk`, `diff_mu`,
+    `diff_logsigma`, `ref_attn_diffusion`), mixed into the attention
+    modules that replace their queries, so the names sit directly under
+    `attn`."""
+
+    def _init_ref_query(self, dim: int, heads: int,
+                        use_pallas: bool) -> None:
+        self.ref_qk = nn.Linear(dim, 2 * dim)
+        self.diff_mu = nn.Parameter(torch.zeros(1, 1, dim))
+        self.diff_logsigma = nn.Parameter(torch.zeros(1, 1, dim))
+        self.ref_attn_diffusion = RefAttnDiffusion(heads, use_pallas)
+
+
+def ref_query_mixture(attn: RefQuery, q: torch.Tensor,
                       x_ref: torch.Tensor) -> torch.Tensor:
     """Replace window queries by an attention-weighted mixture of line
     reference tokens: mu/sigma reparameterized ref queries, K1 diffusion of
@@ -138,7 +154,7 @@ def ref_query_mixture(attn: "RefWindowAttention", q: torch.Tensor,
     return torch.einsum("bwhnr,bhrd->bwhnd", ref_attn, ref_v)
 
 
-class RefWindowAttention(RelPosBias):
+class RefWindowAttention(RelPosBias, RefQuery):
     """Line-referenced W-MSA."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
@@ -148,10 +164,7 @@ class RefWindowAttention(RelPosBias):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self._init_rel_pos(window_size, num_heads)
-        self.ref_qk = nn.Linear(dim, 2 * dim)
-        self.diff_mu = nn.Parameter(torch.zeros(1, 1, dim))
-        self.diff_logsigma = nn.Parameter(torch.zeros(1, 1, dim))
-        self.ref_attn_diffusion = RefAttnDiffusion(num_heads, use_pallas)
+        self._init_ref_query(dim, num_heads, use_pallas)
 
     def forward(self, x, x_ref, mask):
         """x (B, nW, N, C); x_ref (B, n_rf, C); mask (nW, N, N) or None."""
@@ -182,19 +195,25 @@ class PlainWindowAttention(RelPosBias):
         return self.proj(out)
 
 
-class WindowClassAttention(RelPosBias):
+class WindowClassAttention(RelPosBias, RefQuery):
     """W-MSA plus depth/seg class-token channel cross-attention: each token
     stream queries, over its channel groups, the concat of the window
-    features and both token streams."""
+    features and both token streams. With `group_attention` the scaled
+    queries are replaced by the reference mixture (`ref_query_mixture`),
+    scaled again."""
 
     def __init__(self, dim: int, window_size: int, num_heads: int,
-                 token_dim: int):
+                 token_dim: int, group_attention: bool = False,
+                 use_pallas: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.token_dim = token_dim
+        self.group_attention = group_attention
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
         self._init_rel_pos(window_size, num_heads)
+        if group_attention:
+            self._init_ref_query(dim, num_heads, use_pallas)
         tx = dim + 2 * token_dim
         self.cls_dth_q = nn.Linear(token_dim, token_dim)
         self.cls_seg_q = nn.Linear(token_dim, token_dim)
@@ -202,14 +221,18 @@ class WindowClassAttention(RelPosBias):
         self.global_v = nn.Linear(tx, tx)
         self.proj_dth = nn.Linear(token_dim, token_dim)
 
-    def forward(self, x, depth_token, seg_token, mask):
-        """x (B, nW, N, C); tokens (B, nW, N, tC)."""
+    def forward(self, x, depth_token, seg_token, mask, x_ref=None):
+        """x (B, nW, N, C); tokens (B, nW, N, tC); x_ref (B, n_rf, C) with
+        group_attention."""
         B, nW, N, C = x.shape
         H = self.num_heads
         tC = self.token_dim
         scale = (C // H) ** -0.5
         q, k, v = (_split_heads(t, H) for t in self.qkv(x).split(C, dim=-1))
-        out = window_msa(q * scale, k, v, self.rel_pos_bias(), mask)
+        q = q * scale
+        if self.group_attention and x_ref is not None:
+            q = ref_query_mixture(self, q, x_ref) * scale
+        out = window_msa(q, k, v, self.rel_pos_bias(), mask)
         x_out = self.proj(out)
 
         dq = _split_heads(self.cls_dth_q(depth_token), H) * scale
@@ -262,24 +285,32 @@ def _pad_hw(x: torch.Tensor, Hp: int, Wp: int) -> torch.Tensor:
 
 class SwinBlock(nn.Module):
     """One (shifted-)window block over an NHWC map, with line-reference
-    attention ('ref'), class-token streams ('class') or plain attention."""
+    attention ('ref'), class-token streams ('class', with the reference
+    mixture where `group_attention`, and the point-guided depth-token
+    fusion where `token_fuse`) or plain attention."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int,
                  shift_size: int, mlp_ratio: float, attn_kind: str,
-                 token_dim: int = 0, use_pallas: bool = False):
+                 token_dim: int = 0, group_attention: bool = False,
+                 use_pallas: bool = False, token_fuse: bool = False):
         super().__init__()
         self.dim = dim
         self.window_size = window_size
         self.shift_size = shift_size
         self.attn_kind = attn_kind
         self.token_dim = token_dim
+        self.token_fuse = token_fuse
+        # the blocks that sample reference features
+        self.need_ref = attn_kind == "ref" or (attn_kind == "class"
+                                               and group_attention)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         if attn_kind == "ref":
             self.attn = RefWindowAttention(dim, window_size, num_heads,
                                            use_pallas)
         elif attn_kind == "class":
             self.attn = WindowClassAttention(dim, window_size, num_heads,
-                                             token_dim)
+                                             token_dim, group_attention,
+                                             use_pallas)
         else:
             self.attn = PlainWindowAttention(dim, window_size, num_heads)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -292,11 +323,15 @@ class SwinBlock(nn.Module):
             self.norm_seg2 = nn.LayerNorm(tC, eps=1e-5)
             self.mlp_depth = Mlp(tC, int(tC * mlp_ratio), tC)
             self.mlp_seg = Mlp(tC, int(tC * mlp_ratio), tC)
+        if token_fuse:
+            from gwdepth_tpu_torch.models.geometry import PointGuidedTokenFuse
+            self.token_relation = PointGuidedTokenFuse(dim, token_dim)
 
     def forward(self, x, ref_coords=None, ref_pos=None, depth_token=None,
-                seg_token=None):
+                seg_token=None, token_pos=None):
         """x (B, H, W, C); ref_coords (B, L, P, 2) in [-1, 1]; ref_pos
-        (B, H, W, C); tokens (B, H, W, tC)."""
+        (B, H, W, C); tokens (B, H, W, tC); token_pos (B, H, W, tC), read
+        by the token fusion."""
         B, H, W, C = x.shape
         ws, shift = self.window_size, self.shift_size
         Hp = -(-H // ws) * ws
@@ -311,15 +346,16 @@ class SwinBlock(nn.Module):
             x = torch.cat([x, self.norm_depth1(depth_token),
                            self.norm_seg1(seg_token)], dim=-1)
         x = _pad_hw(x, Hp, Wp)
-        # only the 'ref' kind reads the reference points
-        use_ref = self.attn_kind == "ref" and ref_coords is not None
+        # the reference features and the token fusion read the points
+        use_ref = self.need_ref and ref_coords is not None
+        fuse = self.token_fuse and ref_coords is not None
         if shift > 0:
             x = torch.roll(x, (-shift, -shift), dims=(1, 2))
             attn_mask = shifted_window_attn_mask(Hp, Wp, ws, shift,
                                                  device=x.device)
-            if use_ref:
+            if use_ref or fuse:
                 ref_coords = roll_ref_coords(ref_coords, shift, Hp, Wp)
-                if ref_pos is not None:
+                if use_ref and ref_pos is not None:
                     ref_pos = torch.roll(ref_pos, (-shift, -shift),
                                          dims=(1, 2))
         else:
@@ -339,7 +375,7 @@ class SwinBlock(nn.Module):
             out = self.attn(xw, x_ref, attn_mask)
         elif self.attn_kind == "class":
             out, dw, sw = self.attn(xw[..., :C], xw[..., C:C + tC],
-                                    xw[..., C + tC:], attn_mask)
+                                    xw[..., C + tC:], attn_mask, x_ref)
             out = torch.cat([out, dw, sw], dim=-1)
         else:
             out = self.attn(xw, attn_mask)
@@ -357,26 +393,34 @@ class SwinBlock(nn.Module):
                 self.norm_depth2(depth_token))
             seg_token = s_shortcut + out[..., C + tC:]
             seg_token = seg_token + self.mlp_seg(self.norm_seg2(seg_token))
+            if fuse:
+                # with the rolled coordinates, as the original
+                depth_token = self.token_relation(x, seg_token, depth_token,
+                                                  ref_coords, token_pos)
         return x, depth_token, seg_token
 
 
 class SwinLayer(nn.Module):
-    """`blocks.N`: SwinBlocks with alternating shift 0 / ws//2;
-    `use_pallas` reaches the ref blocks' diffusion (K1)."""
+    """`blocks.N`: SwinBlocks with alternating shift 0 / ws//2, block i
+    with group attention where `group_blocks[i]`; `use_pallas` reaches the
+    blocks' diffusion (K1)."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, attn_kind: str,
-                 token_dim: int = 0, use_pallas: bool = False):
+                 token_dim: int = 0, group_blocks: Tuple[bool, ...] = (),
+                 use_pallas: bool = False, token_fuse: bool = False):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
-                      attn_kind, token_dim, use_pallas)
+                      attn_kind, token_dim,
+                      i < len(group_blocks) and group_blocks[i], use_pallas,
+                      token_fuse)
             for i in range(depth))
 
     def forward(self, x, ref_coords=None, ref_pos=None, depth_token=None,
-                seg_token=None):
+                seg_token=None, token_pos=None):
         for blk in self.blocks:
             x, depth_token, seg_token = blk(x, ref_coords, ref_pos,
-                                            depth_token, seg_token)
+                                            depth_token, seg_token, token_pos)
         return x, depth_token, seg_token

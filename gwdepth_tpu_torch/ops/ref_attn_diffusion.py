@@ -9,10 +9,14 @@ exact GELU, residual add.
 A CUDA tensor launches the hand-written kernel
 `csrc/ref_attn_diffusion.cu` (it replaces the Pallas TPU kernel
 `gwdepth_tpu/ops/pallas_kernels.py:ref_attn_diffusion_pallas`): all three
-steps in one cooperative launch of a persistent grid, each block holding a
-band of rows of one plane (`band_partition`) in shared memory. A CPU
-tensor takes `ref_attn_diffusion_plain`. Nothing falls back: a CUDA
-tensor the kernel cannot take raises.
+steps in one cooperative launch of a persistent grid, each block owning a
+band of rows of one plane. `plan` chooses the schedule from the shapes
+alone: the band schedule (`band_partition`: the band stays in shared
+memory) where the bands fit a block, as at the 1/32 layer, else the
+device-memory schedule (`tile_partition`: the plane stays in device
+memory and each block sweeps its band in chunks), as at the class
+layers. A CPU tensor takes `ref_attn_diffusion_plain`. Nothing falls
+back: a CUDA tensor that neither schedule takes raises.
 
 Gradients: `ref_attn_diffusion` is a `torch.autograd.Function`. Its
 backward recomputes from the saved inputs and differentiates the 3-step
@@ -33,6 +37,7 @@ import ctypes
 import dataclasses
 import functools
 import re
+from collections import Counter
 from pathlib import Path
 
 import torch
@@ -80,22 +85,25 @@ _SOURCE = Path(__file__).resolve().parent.parent / "csrc" / \
     "ref_attn_diffusion.cu"
 
 
-@functools.lru_cache(maxsize=1)
-def _instances() -> tuple:
-    """The (H, KS, PT) the kernel is built for: the `GW_K1_INSTANCES` list
+@functools.lru_cache(maxsize=2)
+def _instances(schedule: str = "band") -> tuple:
+    """The (H, KS, PT) the kernel is built for, per schedule: the
+    `GW_K1_INSTANCES` ("band") or `GW_K1_TILED_INSTANCES` ("tiled") list
     of the CUDA source, read from there so that it is written once."""
+    name = {"band": "GW_K1_INSTANCES", "tiled": "GW_K1_TILED_INSTANCES"}[
+        schedule]
     src = _SOURCE.read_text()
-    body = src[src.index("#define GW_K1_INSTANCES(X)"):]
+    body = src[src.index(f"#define {name}(X)"):]
     body = body[:body.index("\n\n")]
     return tuple(tuple(int(v) for v in m)
                  for m in re.findall(r"X\((\d+), (\d+), (\d+)\)", body))
 
 
-def kernel_configs(H: int) -> tuple:
-    """The (KS, PT) built at H heads, KS threads on each group of PT
-    positions: widest KS first, then PT ascending."""
-    return tuple(sorted(((ks, pt) for h, ks, pt in _instances() if h == H),
-                        key=lambda c: (-c[0], c[1])))
+def kernel_configs(H: int, schedule: str = "band") -> tuple:
+    """The (KS, PT) built at H heads for `schedule`, KS threads on each
+    group of PT positions: widest KS first, then PT ascending."""
+    return tuple(sorted(((ks, pt) for h, ks, pt in _instances(schedule)
+                         if h == H), key=lambda c: (-c[0], c[1])))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +111,8 @@ class BandPlan:
     """How the kernel's persistent grid splits the planes: `nbp` blocks per
     plane, block k owning rows `bands[k] = (b, p0, rows)`; `threads`
     threads, `ks` of them on each group of `pt` positions; `smem` bytes of
-    shared memory a block."""
+    shared memory a block. The band schedule holds a block's whole band
+    (at most `rows_max` rows) in shared memory."""
     nbp: int
     bands: tuple
     rows_max: int
@@ -113,22 +122,51 @@ class BandPlan:
     smem: int
 
 
-@functools.lru_cache(maxsize=64)
-def band_partition(B: int, P: int, R: int, H: int, sms: int) -> BandPlan:
-    """The kernel's partition of B planes of P rows over `sms` SMs, one
-    block of up to THREADS_MAX threads each (cached: the wrapper asks for
-    every call): every plane gets the same number of blocks (at most P, so
-    no band is empty), each block a contiguous band of whole rows of one
+@dataclasses.dataclass(frozen=True)
+class TilePlan(BandPlan):
+    """The device-memory schedule: the bands of `BandPlan`, each swept in
+    chunks of at most `chunk_rows` rows (the tile in shared memory)."""
+    chunk_rows: int = 0
+
+
+def _bands(B: int, P: int, sms: int):
+    """Every plane gets the same number of blocks, nbp (at most P, so no
+    band is empty), each block a contiguous band of whole rows of one
     plane, the bands of a plane differing by at most one row (block j of a
-    plane starts at row j * P // nbp, as `band_start` in the CUDA source).
-    `smem` is the kernel's carve-up of shared memory, which the launch
-    passes on. Raises ValueError when a band does not fit in one block's
-    shared memory or threads."""
+    plane starts at row j * P // nbp, as `band_start` in the CUDA
+    source). Returns nbp, the bands and the widest band's rows."""
     nbp = max(1, min(P, sms // B))
     starts = [j * P // nbp for j in range(nbp + 1)]
     bands = tuple((b, starts[j], starts[j + 1] - starts[j])
                   for b in range(B) for j in range(nbp))
-    rows_max = _ceil(P, nbp)
+    return nbp, bands, _ceil(P, nbp)
+
+
+def _smem(H: int, nbp: int, rows: int, R: int, ks: int,
+          threads: int) -> int:
+    """Bytes of the kernel's shared-memory carve-up (`carve` in the CUDA
+    source): weights, block partials, block counts, a tile of `rows` rows
+    with halo, warp sums, lane sums, four vectors of H."""
+    return 4 * (9 * H * (H + 4) + 2 * nbp * H + nbp
+                + (rows + 2) * (R + 2) * (H + ks)
+                + (threads // 32) * H + threads + 4 * H)
+
+
+def _check_smem(smem: int, what: str) -> None:
+    if smem > SMEM_MAX:
+        raise ValueError(f"ref_attn_diffusion kernel: {what} needs {smem} "
+                         f"bytes of shared memory, more than {SMEM_MAX}")
+
+
+@functools.lru_cache(maxsize=64)
+def band_partition(B: int, P: int, R: int, H: int, sms: int) -> BandPlan:
+    """The band schedule's partition of B planes of P rows over `sms` SMs,
+    one block of up to THREADS_MAX threads each (cached: the wrapper asks
+    for every call), the bands as `_bands` cuts them. `smem` is the
+    kernel's carve-up of shared memory, which the launch passes on. Raises
+    ValueError when a band does not fit in one block's shared memory or
+    threads."""
+    nbp, bands, rows_max = _bands(B, P, sms)
     npos = rows_max * R
     # the most threads on a group of positions (each weight read from
     # shared memory then feeds the most positions) with which the groups
@@ -146,17 +184,41 @@ def band_partition(B: int, P: int, R: int, H: int, sms: int) -> BandPlan:
             f"ref_attn_diffusion kernel: a band of {rows_max} rows x R={R} "
             f"needs more than {threads} threads of at most "
             f"{max(p for _, p in configs)} positions")
-    # weights, block partials, block counts, band with halo, warp sums,
-    # lane sums, four vectors of H (`diffusion_kernel`'s carve-up)
-    smem = 4 * (9 * H * (H + 4) + 2 * nbp * H + nbp
-                + (rows_max + 2) * (R + 2) * (H + ks)
-                + (threads // 32) * H + threads + 4 * H)
-    if smem > SMEM_MAX:
-        raise ValueError(
-            f"ref_attn_diffusion kernel: a band of {rows_max} rows x R={R} "
-            f"x H={H} needs {smem} bytes of shared memory, more than "
-            f"{SMEM_MAX}")
+    smem = _smem(H, nbp, rows_max, R, ks, threads)
+    _check_smem(smem, f"a band of {rows_max} rows x R={R} x H={H}")
     return BandPlan(nbp, bands, rows_max, threads, ks, pt, smem)
+
+
+@functools.lru_cache(maxsize=64)
+def tile_partition(B: int, P: int, R: int, H: int, sms: int) -> TilePlan:
+    """The device-memory schedule's partition: the bands of `_bands`, each
+    swept in chunks of the most whole rows that THREADS_MAX threads cover
+    (KS threads on each group of PT positions, the one instance built at
+    H). Raises ValueError when one row of R positions is more than the
+    threads cover, or a chunk more than a block's shared memory."""
+    nbp, bands, rows_max = _bands(B, P, sms)
+    (ks, pt), = kernel_configs(H, "tiled")
+    threads = THREADS_MAX
+    cover = threads // ks * pt
+    chunk = min(rows_max, cover // R)
+    if chunk < 1:
+        raise ValueError(
+            f"ref_attn_diffusion kernel: a row of R={R} positions needs "
+            f"more than {threads} threads of {pt} positions ({cover})")
+    smem = _smem(H, nbp, chunk, R, ks, threads)
+    _check_smem(smem, f"a chunk of {chunk} rows x R={R} x H={H}")
+    return TilePlan(nbp, bands, rows_max, threads, ks, pt, smem, chunk)
+
+
+def plan(B: int, P: int, R: int, H: int, sms: int) -> BandPlan:
+    """The schedule for B planes (P, R, H) on `sms` SMs, from the shapes
+    alone: the band schedule where `band_partition` succeeds, else the
+    device-memory schedule (`tile_partition`), which raises ValueError
+    when it cannot take the planes either."""
+    try:
+        return band_partition(B, P, R, H, sms)
+    except ValueError:
+        return tile_partition(B, P, R, H, sms)
 
 
 def _ceil(n: int, d: int) -> int:
@@ -205,23 +267,27 @@ def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     for name, t in (("w", w), ("b", b)):
         if t.device != a.device:
             raise ValueError(f"{name} on {t.device}, planes on {a.device}")
-    plan = band_partition(B, P, R, H, torch.cuda.get_device_properties(
+    pl = plan(B, P, R, H, torch.cuda.get_device_properties(
         a.device).multi_processor_count)
+    tiled = isinstance(pl, TilePlan)
     dtype = a.dtype
     a32 = a.float().contiguous()
     w32 = w.float().contiguous()
     b32 = b.float().contiguous()
     out = torch.empty_like(a32)
-    stats = torch.empty((B * plan.nbp, H, 2), dtype=torch.float32,
+    upd = torch.empty_like(a32) if tiled else None
+    stats = torch.empty((B * pl.nbp, H, 2), dtype=torch.float32,
                         device=a.device)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = _lib().gw_ref_attn_diffusion(
-        a32.data_ptr(), out.data_ptr(), stats.data_ptr(),
-        _barrier(a.device, stream).data_ptr(), w32.data_ptr(),
-        b32.data_ptr(), B, P, R, H, plan.nbp, plan.rows_max, plan.threads,
-        plan.ks, plan.pt, plan.smem, stream)
+        a32.data_ptr(), out.data_ptr(), upd.data_ptr() if tiled else None,
+        stats.data_ptr(), _barrier(a.device, stream).data_ptr(),
+        w32.data_ptr(), b32.data_ptr(), B, P, R, H, pl.nbp,
+        pl.chunk_rows if tiled else pl.rows_max, pl.threads, pl.ks, pl.pt,
+        pl.smem, stream)
     _build.check(err, "ref_attn_diffusion launch")
     ref_attn_diffusion.launches += 1
+    ref_attn_diffusion.shape_launches[B, P, R, H] += 1
     return out.to(dtype)
 
 
@@ -233,7 +299,7 @@ def _lib():
     if fn.argtypes is None:
         P = ctypes.c_void_p
         I = ctypes.c_int
-        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
+        fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I,
                        ctypes.c_longlong, P]
         fn.restype = ctypes.c_int
     return lib
@@ -279,7 +345,9 @@ def ref_attn_diffusion(a: torch.Tensor, w: torch.Tensor,
 
 
 ref_attn_diffusion.launches = 0
+ref_attn_diffusion.shape_launches = Counter()   # (B, P, R, H) -> launches
 
 
 def reset_counts() -> None:
     ref_attn_diffusion.launches = 0
+    ref_attn_diffusion.shape_launches.clear()

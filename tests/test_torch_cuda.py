@@ -154,7 +154,12 @@ def test_k1_graph_replays_beside_a_direct_call_on_the_capture_stream(dev):
     shared by the three launches; each capture has a counter of its own.
     (On an H100 the card ran the three cooperative launches one after
     another, so this passes with a shared counter too: PERF.md.)"""
-    shape = (1, 980, 40, 16)
+    _replays_beside_a_direct_call(dev, (1, 980, 40, 16))
+
+
+def _replays_beside_a_direct_call(dev, shape):
+    """The body of the replay tests: two graphs captured on S1 replayed
+    on S2 and S3 beside a direct call on S1, four times."""
     inputs = [_k1_inputs(30 + i, shape, dev) for i in range(3)]
     want = [port_k1.diffusion_torch(*x) for x in inputs]
     s1, s2, s3 = (torch.cuda.Stream() for _ in range(3))
@@ -186,6 +191,12 @@ def test_k1_graph_replays_beside_a_direct_call_on_the_capture_stream(dev):
             torch.testing.assert_close(got, y, atol=TOL, rtol=0)
 
 
+def test_k1_tiled_graph_replays_beside_a_direct_call(dev):
+    """The device-memory schedule under the same replays: each capture's
+    barrier counter is its own, as for the band schedule."""
+    _replays_beside_a_direct_call(dev, (1, 13034, 30, 16))
+
+
 def test_k1_kernel_is_one_launch(dev):
     """The profiler sees one CUDA kernel per call: all three steps run in
     the one cooperative launch."""
@@ -204,6 +215,83 @@ def test_k1_kernel_is_one_launch(dev):
                if e.device_type == DeviceType.CUDA]
     assert len(kernels) == 2 and all("diffusion_kernel" in k
                                      for k in kernels), kernels
+
+
+# the class-layer planes of the gated forward at 768x1024 (B = 1, and the
+# 1/8 plane at B = 2), then planes that reach the device-memory schedule
+# at every other H, with chunks and bands that do not divide the rows
+K1_TILED_SHAPES = [(1, 3430, 60, 16), (1, 13034, 30, 16), (1, 50764, 80, 16),
+                   (2, 13034, 30, 16), (1, 30001, 10, 2), (1, 30001, 10, 4),
+                   (1, 15001, 10, 8), (2, 5001, 20, 32)]
+
+
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+@pytest.mark.parametrize("shape", K1_TILED_SHAPES)
+def test_k1_tiled_kernel_matches_plain(dev, shape):
+    """Planes whose bands do not fit a block take the device-memory
+    schedule: one launch, within TOL of the plain version, and bit-equal
+    on a rerun (the statistics are combined in a fixed order)."""
+    assert isinstance(port_k1.plan(*shape, _sms(dev)), port_k1.TilePlan)
+    a, w, b = _k1_inputs(40, shape, dev)
+    before = port_k1.ref_attn_diffusion.launches
+    got = port_k1.ref_attn_diffusion(a, w, b)
+    torch.cuda.synchronize()
+    assert port_k1.ref_attn_diffusion.launches == before + 1
+    torch.testing.assert_close(got, port_k1.ref_attn_diffusion_plain(a, w, b),
+                               atol=TOL, rtol=0)
+    assert torch.equal(port_k1.ref_attn_diffusion(a, w, b), got)
+
+
+def test_k1_tiled_kernel_is_one_launch(dev):
+    """The device-memory schedule is one CUDA kernel per call too."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    a, w, b = _k1_inputs(41, (1, 3430, 60, 16), dev)
+    port_k1.ref_attn_diffusion(a, w, b)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            port_k1.ref_attn_diffusion(a, w, b)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 2 and all("diffusion_tiled_kernel" in k
+                                     for k in kernels), kernels
+
+
+def test_k1_tiled_outputs_carry_grad_fn_only_when_inputs_require_grad(dev):
+    """The device-memory schedule's forward keeps the autograd graph, and
+    its gradients are autograd's through the plain version. (The bias
+    gradient is zero up to rounding, since the LayerNorm removes a shift
+    per head, so the planes and weights are compared.)"""
+    a, w, b = _k1_inputs(42, (1, 3430, 60, 16), dev)
+    assert port_k1.ref_attn_diffusion(a, w, b).grad_fn is None
+    ct = torch.randn(a.shape, device=dev,
+                     generator=torch.Generator(dev).manual_seed(2))
+    before = port_k1.ref_attn_diffusion.launches
+    y, got = _grads(port_k1.ref_attn_diffusion, (a, w, b), ct)
+    assert y.grad_fn is not None
+    assert port_k1.ref_attn_diffusion.launches == before + 1
+    _, want = _grads(port_k1.ref_attn_diffusion_plain, (a, w, b), ct)
+    _close_scaled(got[:2], want[:2])
+    with torch.no_grad():
+        assert port_k1.ref_attn_diffusion(a.requires_grad_(), w,
+                                          b).grad_fn is None
+
+
+def test_k1_kernel_raises_for_planes_no_schedule_takes(dev):
+    """A row wider than the device-memory schedule's chunk raises before
+    any launch, with no route to a plain version."""
+    a, w, b = _k1_inputs(43, (1, 10, 2000, 16), dev)
+    before = port_k1.ref_attn_diffusion.launches
+    with pytest.raises(ValueError, match="R=2000"):
+        port_k1.ref_attn_diffusion(a, w, b)
+    assert port_k1.ref_attn_diffusion.launches == before
 
 
 def test_k1_kernel_rejects_unsupported_heads(dev):

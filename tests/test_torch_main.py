@@ -118,6 +118,32 @@ def test_main_refuses_what_the_port_lacks(tmp_path, flag):
         pmain.main(_args(tmp_path, tmp_path / "o", *flag))
 
 
+def test_main_carries_the_dense_encoder_gates(tmp_path):
+    """`--with_dense_center`, `--with_line_depth` and
+    `--class_tokenfuse_layers` reach the config as in the JAX CLI, are not
+    refused, and build the gated modules."""
+    from gwdepth_tpu.main import config_from_args as jax_config_from_args
+    from gwdepth_tpu_torch.models.glassrgbd import GlassRGBD
+
+    argv = _args(tmp_path, tmp_path / "o", "--with_dense_center",
+                 "--with_line_depth", "--class_tokenfuse_layers", "1,0,1")
+    args = pmain.build_argparser().parse_args(argv)
+    cfg = pmain.config_from_args(args)
+    pmain._refuse(args, cfg)
+    jcfg = jax_config_from_args(jax_build_argparser().parse_args(
+        [a for a in argv if a not in ("--device", "cpu")]))
+    for f in ("with_dense_center", "with_line_depth",
+              "class_tokenfuse_layers", "group_attention_layers",
+              "depth_sample_layers"):
+        assert getattr(cfg, f) == getattr(jcfg, f), f
+    assert cfg.ref_points_per_line == 3
+    enc = GlassRGBD(cfg).dense_encoder
+    assert hasattr(enc, "gpg3") and not hasattr(enc, "depth_token")
+    assert [hasattr(layer.blocks[0], "token_relation") for layer in (
+        enc.class_transformer1, enc.class_transformer2,
+        enc.class_transformer3)] == [True, False, True]
+
+
 def test_torch_init_and_weights_only_resume_load_original_names(tmp_path):
     """An original-code checkpoint (DDP prefix, legacy `bbox_embed` name,
     no optimizer) loads by name: as a warm start, and as a `--resume`

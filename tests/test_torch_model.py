@@ -5,7 +5,9 @@ the port's predict CLI.
 Each test of the forward runs on the shipped model and on the gated
 models that the recipes build: the depth-only model (`with_line=False`),
 the line-only model (`with_dense=False`) and the learned position
-embedding (`position_embedding="learned"`).
+embedding (`position_embedding="learned"`). The same checks run on the
+dense encoder's gates (`ENCODER_GATES`) in `tests/test_torch_geometry.py`,
+so that their JAX compiles land on another test process.
 
 Weights: the port's seeded init, carried into a flax tree by the JAX
 package's importer (the learned position tables, which that importer does
@@ -29,7 +31,9 @@ same value. Tolerances, scaled by max(1, |reference|):
     convs.
   - The gated models with `use_pallas=True` feed the point heads other
     activations, with other rounding flips, and are held at
-    BF16_FLIP_TOL, 3e-4. The depth-only model's 1/8 depth reads 1.35e-4
+    BF16_FLIP_TOL, 3e-4; the dense encoder's gates with group attention
+    also to FLIP_MARGIN x JAX's own spread under input noise where that
+    is larger (see ENCODER_GATES). The depth-only model's 1/8 depth reads 1.35e-4
     on 3 of its 192 elements (2e-7 without the taps). On this input the
     port's 1/8 point head run on the JAX model's own inputs to it
     already differs by 6.6e-5, with link inputs within 1.5e-5 of a bf16
@@ -82,6 +86,46 @@ def _perturb(tree, rng):
 GATES = {"shipped": {}, "depth_only": dict(with_line=False),
          "line_only": dict(with_dense=False),
          "learned_posemb": dict(position_embedding="learned")}
+# the dense encoder's gates, each alone and all together but the last (the
+# smoke's gated forward); run by tests/test_torch_geometry.py. With
+# group attention the sampled depth points become the reference points of
+# every query of the 1/8 and 1/4 layers, and K2's bf16 rounding flips in
+# the point heads move the depths past BF16_FLIP_TOL on the JAX side
+# alone: perturbing the image by 1e-7 relative moves JAX's own 1/8 and
+# 1/4 depths by up to 2.2e-4 and 5.4e-4 (group attention) and 1.05e-3
+# and 1.48e-3 at full depth (all gates), where the port's gaps read 4.3e-4,
+# 6.4e-4, 1.49e-3 and 1.43e-3 (float32, use_pallas=False: below 1e-5 on
+# both). The port's 1/8 head computing each link with JAX's own K2
+# reproduces JAX's head to 6.1e-6 on the same inputs. So the bf16 cases
+# of these gates hold each dense output to the larger of BF16_FLIP_TOL
+# and FLIP_MARGIN x JAX's own spread over FLIP_DRAWS such images.
+FLIP_NOISE = 1e-7
+FLIP_DRAWS = 3
+FLIP_MARGIN = 3.0
+ENCODER_GATES = {
+    "group_attention": dict(group_attention_layers=((True,),) * 3),
+    "token_fuse": dict(class_tokenfuse_layers=(True,) * 3),
+    "line_depth": dict(with_line_depth=True),
+    "dense_center": dict(with_dense_center=True),
+    "no_point_sampling": dict(depth_sample_layers=(False,) * 3)}
+ENCODER_GATES["all_gates"] = {
+    k: v for g in ("group_attention", "token_fuse", "line_depth",
+                   "dense_center") for k, v in ENCODER_GATES[g].items()}
+_CONFIGS = {**GATES, **ENCODER_GATES}
+# K1 and K2 launches of one tiny forward with use_pallas: K1 once per
+# line-reference block (2) and per class block with group attention that
+# has reference points (one a layer); K2 for the 12 trunk links of each
+# point head and its `last0` where the concat is at most 400 channels wide
+# (13 + 13). The point heads do not depend on the line gate; the
+# depth-only model's 1/32 layer is plain Swin attention (no K1), the
+# line-only model has no dense branch (neither), and without point
+# sampling there are no point heads (no K2) and no points for the 1/8 and
+# 1/4 class blocks.
+LAUNCHES = {"shipped": (2, 26), "depth_only": (0, 26), "line_only": (0, 0),
+            "learned_posemb": (2, 26), "group_attention": (5, 26),
+            "token_fuse": (2, 26), "line_depth": (2, 26),
+            "dense_center": (2, 26), "no_point_sampling": (2, 0),
+            "all_gates": (5, 26)}
 LINE_KEYS = ("pred_logits", "pred_lines")
 DENSE_KEYS = ("pred_depth", "pred_seg")
 _RUNS = {}
@@ -93,7 +137,7 @@ def model_run(gate):
     at the names the model modules call them by (cached per gate)."""
     if gate in _RUNS:
         return _RUNS[gate]
-    cfg = tiny_test_config(**GATES[gate])
+    cfg = tiny_test_config(**_CONFIGS[gate])
     sd = {k: v.numpy()
           for k, v in init_weights(GlassRGBD(cfg), 0).state_dict().items()}
     params = glassrgbd_torch_to_flax(sd)
@@ -112,7 +156,7 @@ def model_run(gate):
     got, calls = {}, {}
     for use_pallas in (False, True):
         model = GlassRGBD(tiny_test_config(use_pallas=use_pallas,
-                                           **GATES[gate]))
+                                           **_CONFIGS[gate]))
         model.load_state_dict(
             jax_params_to_state_dict(params, model.state_dict()), strict=True)
         seen = {"k1": 0, "k2": 0}
@@ -142,16 +186,33 @@ def _counting(fn, seen, key):
     return spy
 
 
-def _jax_forward(run, gate, use_pallas):
-    jm = JGlassRGBD(jax_tiny(use_pallas=use_pallas, **GATES[gate]))
-    return jax.jit(jm.apply)({"params": run["params"]},
-                             jnp.asarray(run["x"]), jnp.asarray(run["valid"]))
+def _jax_forwards(run, gate, use_pallas, images):
+    """The JAX model's outputs for each of `images` (one compile)."""
+    jm = JGlassRGBD(jax_tiny(use_pallas=use_pallas, **_CONFIGS[gate]))
+    fwd = jax.jit(jm.apply)
+    return [fwd({"params": run["params"]}, jnp.asarray(x),
+                jnp.asarray(run["valid"])) for x in images]
+
+
+def _scale(want) -> float:
+    return max(1.0, float(np.abs(np.asarray(want)).max()))
 
 
 def _close(got, want, tol):
-    want = np.asarray(want)
-    scale = max(1.0, float(np.abs(want).max()))
-    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=tol * scale)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=tol * _scale(want))
+
+
+def _dense(out) -> list:
+    return [*out["pred_depth"], out["pred_seg"]]
+
+
+def _flip_spread(want, noisy) -> list:
+    """Per dense output, the JAX model's own largest move (scaled as
+    `_close` scales) when the image is perturbed by FLIP_NOISE relative."""
+    return [max(float(np.abs(np.asarray(n) - np.asarray(w)).max())
+                for n in outs) / _scale(w)
+            for w, *outs in zip(_dense(want), *map(_dense, noisy))]
 
 
 @pytest.mark.parametrize("use_pallas", [False, True])
@@ -159,8 +220,22 @@ def _close(got, want, tol):
 def test_glassrgbd_matches_jax(gate, use_pallas):
     """Every output against JAX's; an output that a gate turns off is
     absent on both sides."""
+    check_matches_jax(gate, use_pallas)
+
+
+def check_matches_jax(gate, use_pallas, flip_control=False):
+    """`test_glassrgbd_matches_jax` at one gate. With `flip_control` and
+    `use_pallas`, each dense output is held to the larger of BF16_FLIP_TOL
+    and FLIP_MARGIN x the JAX model's own spread over FLIP_DRAWS images
+    perturbed by FLIP_NOISE relative (see ENCODER_GATES)."""
     run = model_run(gate)
-    got, want = run["got"][use_pallas], _jax_forward(run, gate, use_pallas)
+    images = [run["x"]]
+    if flip_control and use_pallas:
+        images += [run["x"] * (1 + FLIP_NOISE * np.random.default_rng(
+            10 + i).normal(size=run["x"].shape)).astype(np.float32)
+            for i in range(FLIP_DRAWS)]
+    got = run["got"][use_pallas]
+    want, *noisy = _jax_forwards(run, gate, use_pallas, images)
     cfg = run["cfg"]
     assert set(got) == set(want)
     if cfg.with_line:
@@ -180,9 +255,9 @@ def test_glassrgbd_matches_jax(gate, use_pallas):
         if use_pallas:
             dense_tol = BF16_TAP_TOL if gate == "shipped" else BF16_FLIP_TOL
         assert len(got["pred_depth"]) == len(want["pred_depth"]) == 4
-        for g, w in zip(got["pred_depth"], want["pred_depth"]):
-            _close(g, w, dense_tol)
-        _close(got["pred_seg"], want["pred_seg"], dense_tol)
+        spread = _flip_spread(want, noisy) if noisy else [0.0] * 5
+        for g, w, sp in zip(_dense(got), _dense(want), spread):
+            _close(g, w, max(dense_tol, FLIP_MARGIN * sp))
     else:
         assert not set(DENSE_KEYS) & set(got)
 
@@ -190,21 +265,20 @@ def test_glassrgbd_matches_jax(gate, use_pallas):
 @pytest.mark.parametrize("gate", sorted(GATES))
 def test_model_routes_kernels_by_use_pallas(gate):
     """As in the JAX package: `use_pallas=False` calls neither kernel
-    wrapper; `True` calls K1 once per line-reference block and K2 for the
-    12 trunk links of each point head and for its `last0` where the concat
-    is at most 400 channels wide. The point heads do not depend on the
-    line gate; the depth-only model's 1/32 layer is plain Swin attention
-    (no K1), and the line-only model has no dense branch (neither)."""
+    wrapper; `True` calls them as `LAUNCHES` counts."""
+    check_routes(gate)
+
+
+def check_routes(gate):
+    """`test_model_routes_kernels_by_use_pallas` at one gate."""
     run = model_run(gate)
     cfg = run["cfg"]
     assert run["calls"][False] == {"k1": 0, "k2": 0}
     k2 = sum(12 + (5 * 2 * p <= points.FUSE_LAST0_MAX_CI)
              for p in cfg.interval_sample_num[:2])
     assert k2 == 26
-    both = cfg.with_line and cfg.with_dense
-    assert run["calls"][True] == {
-        "k1": cfg.dense_trans_layers[0] if both else 0,
-        "k2": k2 if cfg.with_dense else 0}
+    k1, k2 = LAUNCHES[gate]
+    assert run["calls"][True] == {"k1": k1, "k2": k2}
 
 
 @pytest.mark.parametrize("gate", sorted(GATES))
@@ -214,6 +288,11 @@ def test_from_jax_matches_export_torch(gate):
     buffers, and the learned position tables, which its importer does not
     map ('unmapped'): those the bridge takes from the flax tree's
     `position_embedding`."""
+    check_bridge(gate)
+
+
+def check_bridge(gate):
+    """`test_from_jax_matches_export_torch` at one gate."""
     run = model_run(gate)
     template = run["model"].state_dict()
     ours = jax_params_to_state_dict(run["params"], template)
