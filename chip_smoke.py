@@ -12,8 +12,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   3. kernels  hold each kernel against its plain PyTorch version on the
               card at every main-path shape, with seeded inputs (K2 in its
               bf16-tap precision, `fast=True`; K1 also at the gated
-              forward's planes, the class-layer ones in its device-memory
-              schedule, two calls bit-equal); time the kernel, the plain
+              forward's planes and the gated train step's (bs2, up to
+              (2, 47138, 80, 16)), the class-layer ones in its
+              device-memory schedule, two calls bit-equal); time the kernel, the plain
               version and a cuDNN/ATen composition of the same function
               (conv2d + layer_norm + activation; K2's in bf16 on
               channels-last, and as before in float32 on contiguous NCHW,
@@ -37,11 +38,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               and K2 25 launches per image); every output file must
               exist;
   6. backward at every train-canvas shape of K2 (bs2, 88x128 and 176x256)
-              and of K1: each kernel's forward output and its
+              and of K1 (the shipped step's plane and the gated step's
+              four): each kernel's forward output and its
               autograd.Function's gradients of every input against the
               plain version and autograd through it, and forward and
               backward times of the kernel, the plain version, the
-              cuDNN/ATen compositions, and the bound;
+              cuDNN/ATen compositions, and the bound; K1's backward also
+              its peak memory;
   7. train    8 train and 2 val synthetic scenes at 720x1280 through
               `gwdepth_tpu_torch.main.main --use_pallas` on the card at the
               shipped config (bs2 704x1024, dropout 0.1): one epoch of 4 steps,
@@ -58,7 +61,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               (use_pallas; K1 4, K2 25 and 51 backward launches; held at
               fixed bf16-tap limits that a control, the CPU's step on
               images perturbed by 1e-7, must exceed threefold; the
-              depth points each run samples are reported); see
+              depth points each run samples are reported); the same for
+              the gated model (GATED_CFG with the plane-normal loss: K1
+              9 launches; each gradient tensor within the larger of the
+              limit and 3x the control's gap of that tensor); see
               `phase_train_card_vs_cpu`;
   9. window attention  the entries that reach K3 (windowed MSA) and K4
               (layout fence), which no model path calls: one forward of
@@ -88,6 +94,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               1 at 1/4), K2 25, no K3 or K4; card vs CPU at phase 4's
               limits; median forward time, device busy time and idle
               share; then one forward without point sampling (K1 6, K2 0).
+  14. gated training  `main.main --use_pallas` on GATED_CFG with
+              --with_plane_norm_loss (group attention set in the config:
+              neither CLI has a flag for it) on phase 7's scenes, without
+              and with --remat: 4 steps and eval with the counts zeroed
+              before and read after (per step K1 9, 18 with --remat, by
+              plane as GATED_TRAIN_K1; K2 25 and 51 backward), a finite
+              loss_plane in log.txt; the median of 6 steps after 2
+              warm-ups, peak memory, a profiled step (busy time, idle
+              share, kernels), K1's backward by events and its share of
+              the busy time; the first step's losses and gradients with
+              and without --remat from the same weights and batch, with
+              deterministic algorithms (bit-equal on an H100);
+  15. COCO-lines  `recipes/train_stage2_res101_wireframe.sh`'s flags
+              (ResNet-101, --frozen_weights from phase 7's checkpoint,
+              line-only, bs1) on a COCO-lines set written from phase 7's
+              scenes: 2 steps, eval, then --eval --benchmark; no kernel
+              launches; the tensors loaded and the step times.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -108,6 +131,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -280,9 +304,12 @@ def k2_library_bf16(x, w_cl, g, b, r, act):
 # then the gated forward's (`GATED_CFG`): the 1/32 plane with three
 # reference points a line, the 1/16, 1/8 and 1/4 class planes (the band
 # schedule takes the 1/32 planes, the device-memory schedule the others),
-# and the 1/8 plane at B=2
+# the 1/8 plane at B=2, and the gated train step's planes (bs2 704x1024,
+# GATED_TRAIN_K1)
 K1_SITES = [(1, 980, 40, 16), (1, 980, 60, 16), (1, 3430, 60, 16),
-            (1, 13034, 30, 16), (1, 50764, 80, 16), (2, 13034, 30, 16)]
+            (1, 13034, 30, 16), (1, 50764, 80, 16), (2, 13034, 30, 16),
+            (2, 980, 60, 16), (2, 3430, 60, 16), (2, 12103, 30, 16),
+            (2, 47138, 80, 16)]
 # K1 launches of one gated forward by plane
 GATED_K1 = {(1, 980, 60, 16): 4, (1, 3430, 60, 16): 2, (1, 13034, 30, 16): 2,
             (1, 50764, 80, 16): 1}
@@ -649,6 +676,12 @@ K1_PER_FORWARD = 4
 TRAIN_HW = (704, 1024)
 TRAIN_BS = 2
 K1_TRAIN_SHAPE = (TRAIN_BS, 980, 40, 16)
+# K1's planes of one gated train step (GATED_CFG) at bs2 704x1024, by
+# launches: the 1/32 ref layer with three reference points a line, then
+# the class planes at 1/16, 1/8 and 1/4 (70, 247 and 962 windows of an
+# image, x 49 tokens); twice as many launches with --remat
+GATED_TRAIN_K1 = {(2, 980, 60, 16): 4, (2, 3430, 60, 16): 2,
+                  (2, 12103, 30, 16): 2, (2, 47138, 80, 16): 1}
 # gradients: kernel Function vs autograd through the plain version (whose
 # conv carries the JAX package's VJP: dx from bf16-rounded dc and weights,
 # dw in float32), both summing float32 products; the weight gradient sums
@@ -809,12 +842,27 @@ def phase_backward(rng, dev):
         log("[backward] " + json.dumps(rec))
         recs[(B, H, W, Ci, Co, act, True, False)] = rec
 
-    a = torch.from_numpy(rng.normal(size=K1_TRAIN_SHAPE).astype(np.float32))
-    Hh = K1_TRAIN_SHAPE[3]
-    w = torch.from_numpy((rng.normal(size=(3, 3, Hh, Hh))
-                          / np.sqrt(9 * Hh)).astype(np.float32))
-    b = torch.from_numpy((0.1 * rng.normal(size=(Hh,))).astype(np.float32))
-    ct = torch.from_numpy(rng.normal(size=K1_TRAIN_SHAPE).astype(np.float32))
+    k1 = k1_backward_site(rng, dev, K1_TRAIN_SHAPE)
+    # the gated train step's planes; their forward times are phase 3's
+    k1_gated = {shape: k1_backward_site(rng, dev, shape, forward_times=False)
+                for shape in GATED_TRAIN_K1}
+    return recs, k1, k1_gated
+
+
+def k1_backward_site(rng, dev, shape, forward_times: bool = True) -> dict:
+    """K1's Function at one plane: its output and the gradients of every
+    input against autograd through the plain version, the forward's times
+    (`forward_times`), and the backward's: events around
+    `torch.autograd.grad` of the Function (a `diffusion_torch` recompute
+    and its autograd), of the plain version and of `diffusion_torch`
+    (the library), and the backward's peak device memory above what the
+    three kept graphs hold."""
+    B, P, R, H = shape
+    a = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+    w = torch.from_numpy((rng.normal(size=(3, 3, H, H))
+                          / np.sqrt(9 * H)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=(H,))).astype(np.float32))
+    ct = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
     a, w, b, ct = (t.to(dev) for t in (a, w, b, ct))
     inputs = _leaves(a, w, b)
     y = ref_attn_diffusion(*inputs)
@@ -824,32 +872,43 @@ def phase_backward(rng, dev):
     want = torch.autograd.grad(y_plain, inputs, ct, retain_graph=True)
     y_lib = diffusion_torch(*inputs)
     fwd_err = float((y - y_plain).abs().max())
-    assert torch.isfinite(y).all(), "K1 output not finite"
-    assert fwd_err <= K1_TOL, f"K1 train shape max abs err {fwd_err} > {K1_TOL}"
+    assert torch.isfinite(y).all(), f"K1 {shape} output not finite"
+    assert fwd_err <= K1_TOL, f"K1 {shape} max abs err {fwd_err} > {K1_TOL}"
     err = _max_scaled_err(got, want)
-    assert err <= GRAD_TOL, f"K1 bwd scaled err {err} > {GRAD_TOL}"
-    Bk, P, R, _ = K1_TRAIN_SHAPE
-    conv = 2 * Bk * P * R * Hh * Hh * 9
-    with torch.no_grad():
-        fwd = {"max_err": fwd_err,
-               "kernel_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
-               "plain_ms": time_ms(lambda: ref_attn_diffusion_plain(a, w, b)),
-               "library_ms": time_ms(lambda: diffusion_torch(a, w, b)),
-               "device_ms": graph_ms(lambda: ref_attn_diffusion(a, w, b)),
-               "library_device_ms": graph_ms(
-                   lambda: diffusion_torch(a, w, b)),
-               **bound_fields(3 * conv,
-                              4 * (2 * a.numel() + 9 * Hh * Hh + Hh))}
-    k1 = {"name": "K1", "shape": list(K1_TRAIN_SHAPE), "fwd": fwd,
-          "bwd": {"max_scaled_err": err,
-                  "backward_ms": bwd_time_ms(y, inputs, ct),
-                  "plain_ms": bwd_time_ms(y_plain, inputs, ct),
-                  "library_ms": bwd_time_ms(y_lib, inputs, ct),
-                  # recompute, dx and dw of each of the 3 convs
-                  **bound_fields(3 * 3 * conv,
-                                 4 * (3 * a.numel() + 2 * 9 * Hh * Hh))}}
-    log("[backward] " + json.dumps(k1))
-    return recs, k1
+    assert all(torch.isfinite(g).all() for g in got), f"K1 {shape} grad"
+    assert err <= GRAD_TOL, f"K1 bwd {shape} scaled err {err} > {GRAD_TOL}"
+    del got, want
+    conv = 2 * B * P * R * H * H * 9
+    fwd = {"max_err": fwd_err}
+    if forward_times:
+        with torch.no_grad():
+            fwd.update({
+                "kernel_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
+                "plain_ms": time_ms(
+                    lambda: ref_attn_diffusion_plain(a, w, b)),
+                "library_ms": time_ms(lambda: diffusion_torch(a, w, b)),
+                "device_ms": graph_ms(lambda: ref_attn_diffusion(a, w, b)),
+                "library_device_ms": graph_ms(
+                    lambda: diffusion_torch(a, w, b)),
+                **bound_fields(3 * conv,
+                               4 * (2 * a.numel() + 9 * H * H + H))})
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    torch.autograd.grad(y, inputs, ct, retain_graph=True)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - held
+    rec = {"name": "K1", "shape": list(shape), "fwd": fwd,
+           "bwd": {"max_scaled_err": err,
+                   "backward_ms": bwd_time_ms(y, inputs, ct),
+                   "plain_ms": bwd_time_ms(y_plain, inputs, ct),
+                   "library_ms": bwd_time_ms(y_lib, inputs, ct),
+                   "peak_bytes": peak,
+                   # recompute, dx and dw of each of the 3 convs
+                   **bound_fields(3 * 3 * conv,
+                                  4 * (3 * a.numel() + 2 * 9 * H * H))}}
+    log("[backward] " + json.dumps(rec))
+    return rec
 
 
 # ---------------------------------------------------------------------------
@@ -961,6 +1020,7 @@ def phase_train(card: str, tmp: str):
     batches = [b.to("cuda") for b, _ in loader.epoch(5)]
     step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.reset_peak_memory_stats()
     times, solve = [], []
     for i in range(10):
         torch.cuda.synchronize()
@@ -983,13 +1043,16 @@ def phase_train(card: str, tmp: str):
                           "step_ms", "train-profile")
     return runs, {"step_ms": step_ms, "matcher_ms": matcher_ms,
                   "step_times": times, "profile": prof, "args": args,
-                  "root": root, "out": out, "n_val": n_val}
+                  "root": root, "out": out, "n_train": n_train,
+                  "n_val": n_val}
 
 
-def _train_grads(cfg, model, batch, dev, images=None):
+def _train_grads(cfg, model, batch, dev, images=None, use_points=None):
     """One train step's losses, parameter gradients and sampled depth
     points (every `certain_sample` result, on the CPU) of `model` on `dev`
-    (`images` in place of the batch's, on the CPU)."""
+    (`images` in place of the batch's, on the CPU). With `use_points` (a
+    list of earlier results) each `certain_sample` call returns the
+    earlier run's points in place of its own (its own still recorded)."""
     from gwdepth_tpu_torch.models import dense_encoder
     from gwdepth_tpu_torch.parallel import compute_losses
 
@@ -999,6 +1062,8 @@ def _train_grads(cfg, model, batch, dev, images=None):
     def spy(*args, **kw):
         out = sample(*args, **kw)
         points.append(out.detach().cpu())
+        if use_points is not None:
+            out = use_points[len(points) - 1].to(out.device)
         return out
 
     b = batch.to(dev)
@@ -1048,7 +1113,9 @@ def phase_train_card_vs_cpu() -> dict:
     """One train step's losses and gradients on the card and on the CPU:
     the shipped widths on a 128x192 canvas, dropout 0, one batch, first
     without the kernels (float32 throughout on both devices), then with
-    them (K1 and K2's bf16 taps on both devices).
+    them (K1 and K2's bf16 taps on both devices); for the shipped model
+    and for the gated one (GATED_CFG with the plane-normal loss logged:
+    K1 also at the class planes, 9 launches).
 
     Each path also runs the CPU step on images scaled by 1 + 1e-7 noise
     (float32 resolution), and every run records the pixels that
@@ -1058,40 +1125,88 @@ def phase_train_card_vs_cpu() -> dict:
     perturbation moves the point heads' gradients far more than the
     card-vs-CPU gap: it is the control, a run known to differ, and the
     bf16-tap limits must sit at least CONTROL_MARGIN below it."""
+    out = {"shipped": train_card_vs_cpu("shipped", {})}
+    out["gated"] = train_card_vs_cpu(
+        "gated", dict(GATED_CFG, with_plane_norm_loss=True), gated=True)
+    return out
+
+
+@torch.no_grad()
+def perturb_weights(model, seed: int):
+    """Every floating parameter a -> a (1 + 0.1 n1) + 0.01 n2, with n1, n2
+    standard normal from `seed`, as the CPU tests perturb their weights
+    (`tests/test_torch_model.py:_perturb`): no zero bias or unit LayerNorm
+    weight of the seeded init is left."""
+    gen = torch.Generator().manual_seed(seed)
+    for p in model.parameters():
+        n = torch.randn((2, *p.shape), generator=gen)
+        p.mul_(1 + 0.1 * n[0]).add_(0.01 * n[1])
+    return model
+
+
+def train_card_vs_cpu(model_name: str, gates: dict,
+                      gated: bool = False) -> dict:
+    """`phase_train_card_vs_cpu` for the model of `gates`.
+
+    `gated` (the gated model) changes three things. The seeded weights
+    are perturbed as the CPU tests perturb theirs (`perturb_weights`).
+    The card step and the control take the CPU step's sampled depth
+    points (`certain_sample`'s per-bin quotas and top-k sit next to ties
+    at random weights: an H100 picked 11 of 60 and 41 of 160 points
+    other than the CPU's, which the control's noise never moved, and the
+    1/4 class layer's gradients, whose reference points they are, then
+    differ by 5 %). And each gradient tensor is held to the larger of the
+    path's limit and CONTROL_MARGIN x the control's gap of that same
+    tensor, the medians to the path's limits: the gated dense branch
+    moves the backbone's layer2 gradients by 2.3e-3 on the CPU alone
+    under the 1e-7 noise, and a control that small cannot exceed the
+    bf16 limits threefold (it is reported). ROADMAP.md section 3."""
     from gwdepth_tpu_torch.data.batch import dummy_batch
 
+    k1_want = sum(GATED_K1.values()) if gated else K1_PER_FORWARD
     out, grads = {}, {}
     for use_pallas in (False, True):
         cfg = GWDepthConfig(dropout=0.0, train_hw=(128, 192),
-                            use_pallas=use_pallas)
+                            use_pallas=use_pallas, **gates)
         batch = dummy_batch(cfg, TRAIN_BS, num_lines=6, seed=SEED)
         model_cpu = build_glassrgbd(cfg, SEED, device="cpu").train()
+        if gated:
+            perturb_weights(model_cpu, SEED + 3)
         model_gpu = copy.deepcopy(model_cpu).to("cuda")
         lc, gc, pc = _train_grads(cfg, copy.deepcopy(model_cpu), batch,
                                   "cpu")
         torch.cuda.synchronize()
         _reset_counts()
-        lg, gg, pg = _train_grads(cfg, model_gpu, batch, "cuda")
+        lg, gg, pg = _train_grads(cfg, model_gpu, batch, "cuda",
+                                  use_points=pc if gated else None)
         torch.cuda.synchronize()
         n = _counts()
-        want = ({"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+        want = ({"k1": k1_want, "k2": K2_FWD_PER_FORWARD,
                  "k2_bwd": K2_BWD_PER_STEP} if use_pallas
                 else {"k1": 0, "k2": 0, "k2_bwd": 0})
         assert {k: n[k] for k in want} == want, (n, want)
-        assert set(gg) == set(gc)
+        assert set(gg) == set(gc) and set(lg) == set(lc)
+        assert ("loss_plane" in lc) == bool(gates), sorted(lc)
         gen = torch.Generator().manual_seed(SEED)
         noisy = batch.images * (1 + 1e-7 * torch.randn(
             batch.images.shape, generator=gen))
-        _, gn, pn = _train_grads(cfg, model_cpu, batch, "cpu", images=noisy)
+        _, gn, pn = _train_grads(cfg, model_cpu, batch, "cpu", images=noisy,
+                                 use_points=pc if gated else None)
         rel = _grad_gaps(gg, gc)
         line = [k for k in rel if k.startswith(
             ("transformer.", "class_embed", "lines_embed", "query_embed",
              "input_proj"))]
         stats = _gap_stats(gg, gc)
+        ctl = _grad_gaps(gn, gc)
+        limit = (BF16_GRAD_REL_L2_MAX_TOL if use_pallas
+                 else TRAIN_GRAD_REL_L2_TOL)
+        over = {k: v / max(limit, CONTROL_MARGIN * ctl.get(k, 0.0))
+                for k, v in rel.items() if v > limit}
         out["bf16_taps" if use_pallas else "float32"] = {
             "launches": n,
             "max_loss_rel": max(abs(lg[k] - lc[k]) / max(1.0, abs(lc[k]))
                                 for k in lc),
+            "losses_cpu": lc,
             "grad_tensors": len(rel),
             "grad_rel_l2_max": stats["max"],
             "grad_rel_l2_median": stats["median"],
@@ -1100,15 +1215,26 @@ def phase_train_card_vs_cpu() -> dict:
             "points": [int(t.shape[0] * t.shape[1]) for t in pc],
             "points_moved": _points_moved(pg, pc),
             "cpu_perturbed": {**_gap_stats(gn, gc),
-                              "points_moved": _points_moved(pn, pc)}}
+                              "points_moved": _points_moved(pn, pc)},
+            # tensors past the limit: gap / max(limit, margin x control)
+            "past_limit": len(over),
+            "past_limit_worst": sorted(over.items(),
+                                       key=lambda kv: -kv[1])[:3]}
         grads[use_pallas] = (gc, gg)
+        del model_cpu, model_gpu
     # how far K2's precision itself moves the step (reported, no limit)
     out["bf16_taps_vs_float32"] = _gap_stats(grads[True][1], grads[False][0])
-    log("[train-cmp] card vs CPU: " + json.dumps(out))
+    log(f"[train-cmp] {model_name} card vs CPU: " + json.dumps(out))
     f32, bf = out["float32"], out["bf16_taps"]
     for path in (f32, bf):
         assert path["max_loss_rel"] <= TRAIN_LOSS_REL_TOL, path
         assert path["line_branch_rel_l2_max"] <= TRAIN_GRAD_REL_L2_TOL, path
+    if gated:
+        for path, median in ((f32, TRAIN_GRAD_REL_L2_TOL),
+                             (bf, BF16_GRAD_REL_L2_MEDIAN_TOL)):
+            assert all(r <= 1.0 for _, r in path["past_limit_worst"]), path
+            assert path["grad_rel_l2_median"] <= median, path
+        return out
     assert f32["grad_rel_l2_max"] <= TRAIN_GRAD_REL_L2_TOL, f32
     assert bf["grad_rel_l2_max"] <= BF16_GRAD_REL_L2_MAX_TOL, bf
     assert bf["grad_rel_l2_median"] <= BF16_GRAD_REL_L2_MEDIAN_TOL, bf
@@ -1439,6 +1565,372 @@ def phase_line_only(train: dict) -> dict:
     log(f"[line-only] log.txt: loss {logs[0]['train_loss']}, loss_ce "
         f"{logs[0]['train_loss_ce']}")
     return {"seconds": secs, "launches": n}
+
+
+# ---------------------------------------------------------------------------
+# gated training, COCO-lines training (phases 14, 15)
+# ---------------------------------------------------------------------------
+
+# the gated train step: GATED_CFG with the plane-normal loss logged
+GATED_TRAIN_FLAGS = ["--with_dense_center", "--with_line_depth",
+                     "--class_tokenfuse_layers", "1,1,1",
+                     "--with_plane_norm_loss"]
+GATED_STEPS = 6               # timed train steps, after 2 warm-ups
+REMAT_LOSS_REL_TOL = 1e-5
+# the same kernels run with and without --remat; the comparison runs with
+# PyTorch's deterministic algorithms, since by default the card's backward
+# scatter-adds (the gathers' gradients) and cuDNN's convolutions sum in
+# an order that changes from run to run, and K2's bf16 rounding in the
+# point heads carries that past this limit even between two runs without
+# --remat (phase 14 reports both)
+REMAT_GRAD_REL_L2_TOL = 1e-4
+
+
+@contextlib.contextmanager
+def group_attention(train_main):
+    """`main.main` with group attention in every class block, as
+    GATED_CFG: neither CLI has a flag for it, so the config `main.main`
+    builds from its flags gets it here."""
+    orig = train_main.config_from_args
+    train_main.config_from_args = lambda args: orig(args).replace(
+        group_attention_layers=GATED_CFG["group_attention_layers"])
+    try:
+        yield
+    finally:
+        train_main.config_from_args = orig
+
+
+@contextlib.contextmanager
+def k1_backward_events():
+    """CUDA events around every K1 backward (a `diffusion_torch` recompute
+    and its autograd, on the kernel's saved inputs); yields the list of
+    (start, end) pairs."""
+    from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
+
+    fn = k1_mod._RefAttnDiffusion
+    orig = fn.backward
+    pairs = []
+
+    def timed(ctx, ct):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        out = orig(ctx, ct)
+        e.record()
+        pairs.append((s, e))
+        return out
+
+    fn.backward = staticmethod(timed)
+    try:
+        yield pairs
+    finally:
+        fn.backward = staticmethod(orig)
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """PyTorch's deterministic algorithms (cuDNN's too) inside, warning on
+    an operation that has none; the settings before it restored after."""
+    old = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(old[0], warn_only=old[1])
+        torch.backends.cudnn.deterministic = old[2]
+
+
+def _with_args(args, **kv) -> list:
+    """`args` with the value of each flag --k replaced by kv[k]."""
+    args = list(args)
+    for k, v in kv.items():
+        args[args.index(f"--{k}") + 1] = v
+    return args
+
+
+def _gated_step_expected(remat: bool) -> dict:
+    return {"k1": sum(GATED_TRAIN_K1.values()) * (2 if remat else 1),
+            "k2": K2_FWD_PER_FORWARD, "k2_bwd": K2_BWD_PER_STEP,
+            "k3": 0, "k4": 0}
+
+
+def gated_train_run(card: str, train: dict, remat: bool) -> dict:
+    """`main.main --use_pallas` on GATED_CFG with --with_plane_norm_loss
+    (and --remat) for one epoch of 4 steps and its eval, on phase 7's
+    scenes, the launch counts zeroed just before and read just after;
+    then, from the trained state, GATED_STEPS timed steps after 2
+    warm-ups (launches and K1 planes counted per step), the peak memory,
+    a profiled step, and one step with K1's backward timed by events."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import make_train_step
+
+    tag = "gated-train-remat" if remat else "gated-train"
+    out = os.path.join(os.path.dirname(train["out"]), tag)
+    args = _with_args(train["args"], output_dir=out) + GATED_TRAIN_FLAGS + \
+        ["--epochs", "1"] + (["--remat"] if remat else [])
+    steps, n_val = train["n_train"] // TRAIN_BS, train["n_val"]
+    per_step = _gated_step_expected(remat)
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    with group_attention(train_main):
+        state = train_main.main(args)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    n = _counts()
+    want = {k: v * steps for k, v in per_step.items()}
+    want["k1"] += sum(GATED_K1.values()) * n_val
+    want["k2"] += K2_FWD_PER_FORWARD * n_val
+    want["matcher_calls"] = steps + n_val
+    log(f"[{tag}] main.main 4 steps + eval: {secs:.1f} s, launches {n}, "
+        f"expected {want}")
+    assert n == want, (n, want)
+    cfg = state.model.cfg
+    assert cfg.remat == remat and cfg.with_plane_norm_loss
+    assert cfg.group_attention_layers == GATED_CFG["group_attention_layers"]
+    logs = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    assert len(logs) == 1 and all(np.isfinite(v) for v in logs[0].values())
+    assert np.isfinite(logs[0]["train_loss_plane"]), logs[0]
+    log(f"[{tag}] log.txt: loss {logs[0]['train_loss']}, loss_plane "
+        f"{logs[0]['train_loss_plane']}")
+
+    loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                    seed=SEED, num_workers=4)
+    batches = [b.to("cuda") for b, _ in loader.epoch(5)]
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for i in range(2 + GATED_STEPS):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, vec = step(state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+        got = _counts()
+        assert {k: got[k] for k in per_step} == per_step, (got, per_step)
+        planes = dict(ref_attn_diffusion.shape_launches)
+        assert planes == {p: k * (2 if remat else 1)
+                          for p, k in GATED_TRAIN_K1.items()}, planes
+        assert torch.isfinite(vec).all(), "non-finite gated train loss"
+    peak = torch.cuda.max_memory_allocated()
+    step_ms = float(np.median(times))
+    log(f"[{tag}] train step bs{TRAIN_BS} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
+        f"median {step_ms:.3f} ms over {len(times)} steps "
+        f"({json.dumps(times)}) on {card}; launches a step {per_step}; "
+        f"peak memory {peak / 2**30:.2f} GiB")
+    prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
+                          "step_ms", f"{tag}-profile")
+    assert not prof or prof["k1_kernels"] == per_step["k1"], prof
+    with k1_backward_events() as pairs:
+        step(state, batches[1], gen)
+        torch.cuda.synchronize()
+    bwd = [s.elapsed_time(e) for s, e in pairs]
+    assert len(bwd) == sum(GATED_TRAIN_K1.values()), len(bwd)
+    k1_bwd_ms = float(sum(bwd))
+    busy = prof.get("device_busy_ms")
+    log(f"[{tag}] K1 backward by events: {k1_bwd_ms:.3f} ms a step "
+        f"({json.dumps(bwd)}), share of the busy time "
+        f"{k1_bwd_ms / busy if busy else float('nan'):.4f}")
+    return {"seconds": secs, "launches": n, "per_step": per_step,
+            "step_ms": step_ms, "step_times": times, "peak_bytes": peak,
+            "profile": prof, "k1_backward_ms": k1_bwd_ms,
+            "k1_backward_calls_ms": bwd, "loss_plane":
+                logs[0]["train_loss_plane"], "cfg": cfg, "batch": batches[0]}
+
+
+def phase_gated_train(card: str, train: dict) -> dict:
+    """Phase 14: `gated_train_run` without and with --remat, then one
+    first step of each from the same seeded weights on the same batch,
+    with deterministic algorithms: the losses equal to REMAT_LOSS_REL_TOL,
+    every gradient tensor to REMAT_GRAD_REL_L2_TOL relative L2 (the
+    tensors that are bit-equal counted)."""
+    from gwdepth_tpu_torch.parallel import compute_losses
+
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = gated_train_run(card, train, remat)
+        torch.cuda.empty_cache()
+    b = runs[False]["batch"]
+
+    def first_step(remat):
+        cfg = runs[remat]["cfg"]
+        model = build_glassrgbd(cfg, SEED, device="cpu").to("cuda").train()
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        _, logs = compute_losses(cfg, model(b.images, b.valid,
+                                            generator=gen), b)
+        logs["loss"].backward()
+        res = ({k: float(v.detach()) for k, v in logs.items()},
+               {n: p.grad.detach() for n, p in model.named_parameters()
+                if p.grad is not None})
+        del model
+        torch.cuda.empty_cache()
+        return res
+
+    with deterministic_algorithms(), warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        (l0, g0), (l1, g1) = first_step(False), first_step(True)
+    nondeterministic = sorted({str(w.message)[:160] for w in caught
+                               if "deterministic" in str(w.message)})
+    assert set(l0) == set(l1) and set(g0) == set(g1)
+    loss_rel = max(abs(l1[k] - l0[k]) / max(abs(l0[k]), 1e-12) for k in l0)
+    gaps = _gap_stats(g1, g0)
+    equal = sum(torch.equal(g0[n], g1[n]) for n in g0)
+    # with the default algorithms (reported): remat against no remat, and
+    # two runs without --remat
+    d0 = first_step(False)[1]
+    default = {"remat": _gap_stats(first_step(True)[1], d0),
+               "rerun": _gap_stats(first_step(False)[1], d0)}
+    log(f"[gated-train] remat vs no remat, first step (deterministic "
+        f"algorithms; without one: {nondeterministic}): losses {l0}; max "
+        f"relative loss gap {loss_rel}; gradients {json.dumps(gaps)}, "
+        f"{equal} of {len(g0)} tensors bit-equal; by default algorithms: "
+        f"{json.dumps(default)}")
+    assert loss_rel <= REMAT_LOSS_REL_TOL, (loss_rel, l0, l1)
+    assert gaps["max"] <= REMAT_GRAD_REL_L2_TOL, gaps
+    for r in runs.values():
+        r.pop("cfg")
+        r.pop("batch")
+    return {"runs": runs, "remat_loss_rel": loss_rel, "remat_grads": gaps,
+            "remat_bit_equal": [equal, len(g0)], "default_algorithms":
+                default}
+
+
+def write_coco_lines(root: str, dst: str, per_split: int = 2) -> dict:
+    """A COCO-lines set from phase 7's synthetic scenes: the first
+    `per_split` train and val scenes as `lines_{train,val}2017.json` in
+    `dst`, each polygon edge an annotation in offset form [x, y, dx, dy];
+    the images stay in `root`/rgb. Returns split -> image count."""
+    from PIL import Image
+    from gwdepth_tpu_torch.data.dataset import lines_from_polygons
+
+    counts = {}
+    for split in ("train", "val"):
+        with open(os.path.join(root, f"{split}.txt")) as f:
+            names = [ln.split()[0] for ln in f if ln.strip()][:per_split]
+        images, anns = [], []
+        for i, name in enumerate(names):
+            w, h = Image.open(os.path.join(root, "rgb", name + ".png")).size
+            images.append({"id": i, "file_name": name + ".png",
+                           "width": w, "height": h})
+            with open(os.path.join(root, "lines", name + ".json")) as f:
+                lines, _, _ = lines_from_polygons(json.load(f))
+            for x1, y1, x2, y2 in lines.tolist():
+                anns.append({"id": len(anns), "image_id": i,
+                             "category_id": 0, "area": 1, "iscrowd": 0,
+                             "line": [x1, y1, x2 - x1, y2 - y1]})
+        with open(os.path.join(dst, f"lines_{split}2017.json"), "w") as f:
+            json.dump({"images": images, "annotations": anns,
+                       "categories": [{"id": 0, "name": "line"}]}, f)
+        counts[split] = len(images)
+    return counts
+
+
+def phase_coco_lines(train: dict) -> dict:
+    """Phase 15: `main.main` with the flags of
+    `recipes/train_stage2_res101_wireframe.sh` (--backbone resnet101
+    --frozen_weights <phase 7's checkpoint> --num_queries 100 --with_line
+    --with_center, bs1) on a COCO-lines set written from phase 7's
+    scenes: 2 steps and the eval, then `--eval --benchmark` from its
+    checkpoint. The line-only model runs no kernel (counted from 0 over
+    each run); prints the tensors that --frozen_weights loaded and the
+    step times."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch import parallel
+
+    root, tmp = train["root"], os.path.dirname(train["out"])
+    ann = os.path.join(tmp, "coco_ann")
+    os.makedirs(ann)
+    counts = write_coco_lines(root, ann)
+    ckpt = os.path.join(train["out"], "checkpoints", "checkpoint.pth")
+    out = os.path.join(tmp, "coco_res101")
+    args = ["--device", "cuda", "--output_dir", out, "--backbone",
+            "resnet101", "--frozen_weights", ckpt, "--batch_size", "1",
+            "--epochs", "1", "--lr_drop", "120", "--num_queries", "100",
+            "--with_line", "--with_center", "--num_workers", "4",
+            "--coco_path", os.path.join(root, "rgb"),
+            "--coco_ann_train", os.path.join(ann, "lines_train2017.json"),
+            "--coco_ann_val", os.path.join(ann, "lines_val2017.json")]
+    loaded, step_times = [], []
+    load_frozen = train_main.load_frozen_weights
+    make_step = parallel.make_train_step
+
+    def counted_load(model, path):
+        loaded.append(load_frozen(model, path))
+        return loaded[-1]
+
+    def timed_make_step(cfg):
+        step = make_step(cfg)
+
+        def timed(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = step(*a, **kw)
+            torch.cuda.synchronize()
+            step_times.append((time.perf_counter() - t0) * 1e3)
+            return res
+        timed.log_keys = step.log_keys
+        return timed
+
+    train_main.load_frozen_weights = counted_load
+    parallel.make_train_step = timed_make_step
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state = train_main.main(args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n_train = _counts()
+        _reset_counts()
+        t1 = time.perf_counter()
+        stats = train_main.main(args + ["--eval", "--benchmark"])
+        torch.cuda.synchronize()
+        eval_secs = time.perf_counter() - t1
+        n_eval = _counts()
+    finally:
+        train_main.load_frozen_weights = load_frozen
+        parallel.make_train_step = make_step
+    none = {"k1": 0, "k2": 0, "k2_bwd": 0, "k3": 0, "k4": 0}
+    log(f"[coco-lines] main.main ResNet-101, 2 steps + eval: {secs:.1f} s, "
+        f"launches {n_train}; --eval --benchmark: {eval_secs:.1f} s, "
+        f"launches {n_eval}")
+    assert {k: n_train[k] for k in none} == none, n_train
+    assert {k: n_eval[k] for k in none} == none, n_eval
+    assert n_train["matcher_calls"] == counts["train"] + counts["val"]
+    cfg = state.model.cfg
+    assert cfg.backbone == "resnet101" and not cfg.with_dense
+    assert len(state.model.backbone[0].body.layer3) == 23
+    assert state.step == counts["train"] and len(step_times) == state.step
+
+    # what --frozen_weights must load: each encoder/decoder/head tensor of
+    # phase 7's checkpoint that the ResNet-101 line-only model holds
+    own = build_glassrgbd(cfg, SEED, device="cpu").state_dict()
+    src = torch.load(ckpt, map_location="cpu", weights_only=False)["model"]
+    keep = ("encoder", "decoder", "class_embed", "lines_embed")
+    want = sum(k in own and tuple(v.shape) == tuple(own[k].shape)
+               and any(t in k for t in keep) for k, v in src.items())
+    log(f"[coco-lines] --frozen_weights loaded {loaded} tensors (expected "
+        f"{want} a run); step times {json.dumps(step_times)} ms on "
+        f"{torch.cuda.get_device_name(0)}")
+    assert loaded == [want, want] and want > 0, (loaded, want)
+    logs = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
+    assert all(np.isfinite(v) for v in logs[0].values()), logs[0]
+    assert stats == {}, stats            # line-only: no eval metrics
+    dumps = sorted(os.listdir(os.path.join(out, "benchmark",
+                                           "benchmark_val")))
+    assert len(dumps) == counts["val"], dumps
+    return {"seconds": secs, "eval_seconds": eval_secs,
+            "launches": n_train, "eval_launches": n_eval,
+            "frozen_loaded": want, "step_times": step_times}
 
 
 # ---------------------------------------------------------------------------
@@ -1921,11 +2413,13 @@ def main(argv=None) -> None:
     phase_serve()
     depth_only = phase_depth_only(card)
     gated = phase_gated(card)
-    k2_train, k1_train = phase_backward(rng, dev)
+    k2_train, k1_train, k1_gated_bwd = phase_backward(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
         evals = phase_eval_outputs(train)
         line_only = phase_line_only(train)
+        gated_train = phase_gated_train(card, train)
+        coco = phase_coco_lines(train)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
 
@@ -1957,6 +2451,19 @@ def main(argv=None) -> None:
         """Sum over the gated forward's K1 planes of launches x `field`."""
         return sum(n * k1_sites[shape][field]
                    for shape, n in GATED_K1.items())
+
+    def gated_train_k1(field):
+        """Sum over the gated train step's K1 planes of forward launches
+        (without --remat) x `field` of phase 3."""
+        return sum(n * k1_sites[shape][field]
+                   for shape, n in GATED_TRAIN_K1.items())
+
+    def gated_train_k1_bwd(field):
+        """The same for the backward's `field` of phase 6."""
+        return sum(n * k1_gated_bwd[shape]["bwd"][field]
+                   for shape, n in GATED_TRAIN_K1.items())
+
+    g_runs = gated_train["runs"]
 
     k2_train_err = max(r["fwd"]["max_err"] for r in k2_train.values())
     k2_bwd_err = max(r["bwd"]["max_scaled_err"] for r in k2_train.values())
@@ -1995,6 +2502,31 @@ def main(argv=None) -> None:
          "gated_library_ms": gated_k1("library_ms"),
          "gated_device_ms": gated_k1("device_ms"),
          "gated_library_device_ms": gated_k1("library_device_ms"),
+         # the gated train step (phase 14): forward launches a step,
+         # without and with --remat, the per-plane times of phases 3 and 6
+         # x the launches, and what the step's own run measured
+         "train_gated_launches_per_step": g_runs[False]["per_step"]["k1"],
+         "train_gated_remat_launches_per_step":
+             g_runs[True]["per_step"]["k1"],
+         "train_gated_ms": gated_train_k1("kernel_ms"),
+         "train_gated_device_ms": gated_train_k1("device_ms"),
+         "train_gated_plain_ms": gated_train_k1("plain_ms"),
+         "train_gated_library_ms": gated_train_k1("library_ms"),
+         "train_gated_library_device_ms":
+             gated_train_k1("library_device_ms"),
+         "train_gated_bound_ms": gated_train_k1("bound_ms"),
+         "train_gated_bound_by": bound_by(gated_train_k1),
+         "train_gated_profile_ms": g_runs[False]["profile"].get("k1_ms"),
+         "train_gated_backward_max_scaled_err": max(
+             r["bwd"]["max_scaled_err"] for r in k1_gated_bwd.values()),
+         "train_gated_backward_ms": gated_train_k1_bwd("backward_ms"),
+         "train_gated_backward_plain_ms": gated_train_k1_bwd("plain_ms"),
+         "train_gated_backward_library_ms":
+             gated_train_k1_bwd("library_ms"),
+         "train_gated_backward_bound_ms": gated_train_k1_bwd("bound_ms"),
+         "train_gated_backward_step_ms": g_runs[False]["k1_backward_ms"],
+         "train_gated_backward_peak_bytes": max(
+             r["bwd"]["peak_bytes"] for r in k1_gated_bwd.values()),
          "sites": [{k: r[k] for k in (
              "shape", "schedule", "blocks", "max_err", "kernel_ms",
              "device_ms", "plain_ms", "library_ms", "library_device_ms",
@@ -2022,7 +2554,18 @@ def main(argv=None) -> None:
          "train_library_f32_ms": train_fwd("library_f32_ms"),
          "train_f32_bound_ms": train_fwd("f32_bound_ms"),
          "train_device_ms": train_fwd("device_ms"),
-         "train_library_device_ms": train_fwd("library_device_ms")},
+         "train_library_device_ms": train_fwd("library_device_ms"),
+         # the gated train step runs the shipped step's 25 links (its
+         # point heads do not change), so the per-link times are phase 6's;
+         # the profile's is the step's own
+         "train_gated_launches_per_step": g_runs[False]["per_step"]["k2"],
+         "train_gated_ms": train_fwd("kernel_ms"),
+         "train_gated_device_ms": train_fwd("device_ms"),
+         "train_gated_profile_ms": g_runs[False]["profile"].get("k2_ms"),
+         "train_gated_backward_launches_per_step":
+             g_runs[False]["per_step"]["k2_bwd"],
+         "train_gated_backward_ms": train_bwd("kernel_ms"),
+         "train_gated_backward_device_ms": train_bwd("kernel_device_ms")},
         {"name": "conv3x3_ln_act_backward", "route": "cuda",
          "source": "gwdepth_tpu_torch/csrc/conv3x3_ln_act.cu",
          "replaces": "gwdepth_tpu/ops/fused_conv.py:378",
@@ -2051,6 +2594,10 @@ def main(argv=None) -> None:
         entry["line_only_launches"] = line_only["launches"][key]
         entry["gated_launches"] = gated["launches"][key]
         entry["no_sampling_launches"] = gated["no_sampling_launches"][key]
+        entry["train_gated_run_launches"] = g_runs[False]["launches"][key]
+        entry["train_gated_remat_run_launches"] = \
+            g_runs[True]["launches"][key]
+        entry["coco_lines_launches"] = coco["launches"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -2091,7 +2638,18 @@ def main(argv=None) -> None:
         "without point sampling; K1's gated_* = the gated forward's planes, "
         "launches x the per-call medians of its `sites` (phase 3, B=1; the "
         "1/32 planes in the band schedule, the class planes in the "
-        "device-memory schedule).")
+        "device-memory schedule). train_gated_*: the gated train step "
+        "(phase 14, GATED_CFG with the plane-normal loss, bs2 704x1024): "
+        "K1's = its planes' launches a step without --remat x the per-call "
+        "medians of phase 3 (forward) and phase 6 (backward: the "
+        "diffusion_torch recompute and autograd on the kernel's saved "
+        "inputs; _peak_bytes its largest peak above the kept graphs), "
+        "train_gated_backward_step_ms = K1's backwards of one step by "
+        "events, *_profile_ms = the kernel's device time in the step's "
+        "profile; K2's = phase 6's train links (the same 25). "
+        "train_gated_run_launches / _remat_run_launches: main.main's 4 "
+        "steps and 2 eval forwards without / with --remat; "
+        "coco_lines_launches: the ResNet-101 COCO-lines run (phase 15).")
     dprof = depth_only["profile"]
     log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
         f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "
@@ -2103,6 +2661,28 @@ def main(argv=None) -> None:
         f"{gprof.get('device_idle_share', float('nan')):.4f}, K1 "
         f"{gprof.get('k1_ms', float('nan')):.4f} ms in "
         f"{gprof.get('k1_kernels')} kernels on {card}")
+    for remat, r in g_runs.items():
+        p = r["profile"]
+        busy = p.get("device_busy_ms", float("nan"))
+        log(f"[gated-train{'-remat' if remat else ''}] step median "
+            f"{r['step_ms']:.3f} ms, device busy {busy:.3f} ms, idle share "
+            f"{p.get('device_idle_share', float('nan')):.4f}, "
+            f"{p.get('device_kernels')} kernels, peak memory "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, launches a step "
+            f"{r['per_step']}, K1 forward {p.get('k1_ms', float('nan')):.3f}"
+            f" ms in {p.get('k1_kernels')} kernels, K1 backward "
+            f"{r['k1_backward_ms']:.3f} ms by events (share "
+            f"{r['k1_backward_ms'] / busy:.4f}), loss_plane "
+            f"{r['loss_plane']} on {card}")
+    log(f"[gated-train] remat vs no remat (deterministic algorithms): "
+        f"losses {gated_train['remat_loss_rel']:.3g} relative, gradients "
+        f"{json.dumps(gated_train['remat_grads'])}, bit-equal tensors "
+        f"{gated_train['remat_bit_equal']}; default algorithms "
+        f"{json.dumps(gated_train['default_algorithms'])}")
+    log(f"[coco-lines] ResNet-101 line-only: {coco['frozen_loaded']} "
+        f"tensors from --frozen_weights, step times "
+        f"{json.dumps(coco['step_times'])} ms, train run "
+        f"{coco['seconds']:.1f} s, eval {coco['eval_seconds']:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

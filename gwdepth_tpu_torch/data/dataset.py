@@ -5,7 +5,12 @@ The port's copy of `gwdepth_tpu.data.dataset`, PIL decode only:
 - name lists from train.txt / val.txt;
 - per sample: RGB png, depth png (/1000 -> meters), seg png (>0 -> 1),
   labelme-style polygon json -> closed line loops + per-polygon centroids;
-- `with_center` appends the polygon center to each line -> 6 coords.
+- `with_center` appends the polygon center to each line -> 6 coords;
+- with `with_reflection` and `glassrgbd_rhint_points_path`, each sample
+  also carries the reflection-hint points (`reflection_points`, padded
+  to `max_rhint_points`, and `reflection_mask`), in the canvas frame of
+  the lines. `make_batch` leaves them out, as the JAX package's does: no
+  model reads them.
 
 Samples are padded bottom-right onto the configured canvas with a validity
 mask, GT lines onto `max_lines` slots with a line mask. `Loader` decodes
@@ -30,6 +35,11 @@ from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.data.batch import Batch
 from gwdepth_tpu_torch.data.transforms import (
     Sample, centroid, eval_transform, train_transform)
+
+
+def _open_rgb(path: str) -> Image.Image:
+    """Image file -> PIL RGB image."""
+    return Image.open(path).convert("RGB")
 
 
 def gen_pairs(vertices: np.ndarray) -> np.ndarray:
@@ -83,8 +93,7 @@ class GlassRGBDDataset:
     def load_raw(self, idx: int) -> Tuple[Sample, str]:
         cfg = self.cfg
         name = self.names[idx]
-        image = Image.open(os.path.join(cfg.data_path,
-                                        name + ".png")).convert("RGB")
+        image = _open_rgb(os.path.join(cfg.data_path, name + ".png"))
         depth = np.asarray(Image.open(
             os.path.join(cfg.gt_depth_path, name + ".png"))).astype(np.int32)
         seg = np.asarray(Image.open(os.path.join(cfg.gt_seg_path,
@@ -103,6 +112,21 @@ class GlassRGBDDataset:
         return Sample(image, depth, seg.astype(np.uint8), lines,
                       centers, ids), name
 
+    def load_reflection(self, name: str) -> Optional[np.ndarray]:
+        """The reflection-hint points of `name` as (N, 2) [x, y] pixels of
+        the original image (the json holds [row, col]); None without
+        `with_reflection` or a hint directory, (0, 2) without a file."""
+        cfg = self.cfg
+        if not cfg.with_reflection or not cfg.glassrgbd_rhint_points_path:
+            return None
+        path = os.path.join(cfg.glassrgbd_rhint_points_path, name + ".json")
+        if not os.path.exists(path):
+            return np.zeros((0, 2), np.float32)
+        with open(path) as f:
+            pts = np.asarray(json.load(f).get("rhint_points", []),
+                             np.float32).reshape(-1, 2)
+        return pts[:, ::-1]
+
     def __getitem__(self, idx: int, seed: Optional[int] = None
                     ) -> Dict[str, np.ndarray]:
         cfg = self.cfg
@@ -115,7 +139,26 @@ class GlassRGBDDataset:
         else:
             s = eval_transform(s, cfg.eval_hw)
             canvas = cfg.eval_hw
-        return collate_sample(s, canvas, cfg, name)
+        out = collate_sample(s, canvas, cfg, name)
+        rpts = self.load_reflection(name)
+        if rpts is not None:
+            # original pixels -> normalized by the raw extent -> the canvas
+            # frame of the lines
+            raw_w, raw_h = Image.open(
+                os.path.join(cfg.data_path, name + ".png")).size
+            ih, iw = out["orig_hw"]
+            ch, cw = canvas
+            P = cfg.max_rhint_points
+            padded = np.zeros((P, 2), np.float32)
+            mask = np.zeros((P,), bool)
+            n = min(len(rpts), P)
+            if n:
+                norm = rpts[:n] / np.array([raw_w, raw_h], np.float32)
+                padded[:n] = norm * np.array([iw / cw, ih / ch], np.float32)
+                mask[:n] = True
+            out["reflection_points"] = padded
+            out["reflection_mask"] = mask
+        return out
 
 
 def collate_sample(s: Sample, canvas_hw: Tuple[int, int],

@@ -19,14 +19,20 @@ and `aph_score`), `--save_dense` the depth/seg grids (`dense_pred`),
 `--save_line` the predicted-vs-GT line overlays (`line_pred`). Training
 writes the first batch's label overlay per epoch to `input_log`.
 
-Flags of the JAX CLI that this port does not carry yet stop the run with
-an error instead of being ignored: `--mesh` other than one device,
-`--bf16`, `--remat`, `--coco_path`, `--frozen_weights`, `--pre_norm`
-(which no JAX model reads either), and `--with_reflection` and
-`--with_plane_norm_loss`, a data input and a train loss in JAX (see
-`_refuse`). The dense encoder's gates `--with_dense_center`,
-`--with_line_depth` and `--class_tokenfuse_layers` reach the model.
-`--matcher` is accepted with
+Every flag of the JAX CLI reaches the run, but three, which stop it
+with an error instead of being ignored (see `_refuse`): `--mesh` other
+than one device, `--bf16`, and `--pre_norm` (which no JAX model reads
+either). `--coco_path` with `--coco_ann_train` / `--coco_ann_val` trains
+and evaluates on a COCO-lines set (wireframe, YorkUrban) instead of
+GW-Depth; `--frozen_weights` loads the transformer, dense encoder,
+decoder and line heads of a checkpoint by name and shape, and freezes
+nothing (as the JAX CLI); `--remat` recomputes the dense encoder's Swin
+blocks in the backward; `--with_plane_norm_loss` logs `loss_plane`,
+which no total includes. `--with_reflection` sets the config flag and
+nothing else: the reflection hints also need
+`glassrgbd_rhint_points_path`, for which neither CLI has a flag. The
+dense encoder's gates `--with_dense_center`, `--with_line_depth` and
+`--class_tokenfuse_layers` reach the model. `--matcher` is accepted with
 either value: the port always solves the assignment exactly on the host.
 `--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
 K2) as the JAX CLI routes it through its Pallas kernels; without it the
@@ -154,14 +160,46 @@ def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
 
 def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
     """Stop on a flag the port does not carry yet."""
-    unsupported = [f"--{name}" for name in (
-        "bf16", "remat", "coco_path", "frozen_weights", "pre_norm",
-        "with_plane_norm_loss", "with_reflection") if getattr(args, name)]
+    unsupported = [f"--{name}" for name in ("bf16", "pre_norm")
+                   if getattr(args, name)]
     if cfg.mesh_shape not in ((-1,), (1,)):
         unsupported.append(f"--mesh {args.mesh}")
     if unsupported:
         raise SystemExit(f"{', '.join(unsupported)}: not supported by the "
                          "PyTorch port yet")
+
+
+def local_checkpoint(path: str, flag: str) -> str:
+    """`path`, unless it is a URL: the port downloads nothing."""
+    if path.startswith(("http://", "https://")):
+        raise SystemExit(f"{flag} {path}: a URL; the PyTorch port reads "
+                         "local checkpoints only")
+    return path
+
+
+def load_frozen_weights(model, path: str) -> int:
+    """The two-stage warm start: the checkpoint's tensors whose names
+    contain `encoder`, `decoder`, `class_embed`, `lines_embed` or
+    `bbox_embed` (the transformer, the dense encoder, the depth decoder
+    and the line heads; never the backbone or the input projections),
+    each loaded where the model has a tensor of that name and shape.
+    Nothing is frozen. Returns the number of tensors loaded."""
+    import torch
+    from gwdepth_tpu_torch.predict import _normalize_keys
+
+    raw = torch.load(path, map_location="cpu", weights_only=False)
+    raw = raw.get("model", raw)
+    keep = ("encoder", "decoder", "class_embed", "lines_embed",
+            "bbox_embed")
+    sd = _normalize_keys({k: v for k, v in raw.items()
+                          if any(t in k for t in keep)})
+    own = model.state_dict()
+    sd = {k: v for k, v in sd.items()
+          if k in own and tuple(v.shape) == tuple(own[k].shape)}
+    model.load_state_dict(sd, strict=False)
+    print(f"frozen_weights from {path}: {len(sd)} tensors loaded "
+          "(encoder/decoder/heads only)")
+    return len(sd)
 
 
 def dump_line_predictions(cfg: GWDepthConfig, line_dumps, out_dir: str
@@ -187,6 +225,7 @@ def main(argv=None):
     _refuse(args, cfg)
 
     import torch
+    from gwdepth_tpu_torch.data.coco_lines import CocoLinesDataset
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.engine import (evaluate, format_eval_line,
                                           train_one_epoch)
@@ -198,6 +237,13 @@ def main(argv=None):
     from gwdepth_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     restore_file)
     from gwdepth_tpu_torch.utils.logging import git_sha_banner
+
+    def build_dataset(split):
+        """COCO-lines with --coco_path, else GW-Depth."""
+        if args.coco_path:
+            ann = args.coco_ann_train if split == "train" else args.coco_ann_val
+            return CocoLinesDataset(cfg, args.coco_path, ann, split)
+        return GlassRGBDDataset(cfg, split)
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but CUDA is not available")
@@ -213,15 +259,21 @@ def main(argv=None):
     generator = torch.Generator(device=device).manual_seed(seed)
 
     model = build_glassrgbd(cfg, seed, device="cpu")
+    assert not (args.resume and args.frozen_weights), \
+        "--resume and --frozen_weights are mutually exclusive"
     if args.torch_init:
-        n = load_original_checkpoint(model, args.torch_init,
-                                     warm_start=True)
+        n = load_original_checkpoint(
+            model, local_checkpoint(args.torch_init, "--torch_init"),
+            warm_start=True)
         print(f"warm start from {args.torch_init}: {n} tensors loaded")
+    if args.frozen_weights:
+        load_frozen_weights(model, local_checkpoint(args.frozen_weights,
+                                                    "--frozen_weights"))
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
     print(f"model: {n_params / 1e6:.1f}M params, device: {device}")
 
-    eval_ds = GlassRGBDDataset(cfg, "val")
+    eval_ds = build_dataset("val")
     eval_loader = Loader(eval_ds, batch_size=args.eval_batch_size,
                          shuffle=False, drop_last=False,
                          pad_to_batch=args.eval_batch_size > 1,
@@ -256,7 +308,7 @@ def main(argv=None):
             f.write(format_eval_line(0, stats) + "\n")
         return stats
 
-    train_loader = Loader(GlassRGBDDataset(cfg, "train"),
+    train_loader = Loader(build_dataset("train"),
                           batch_size=cfg.batch_size, shuffle=True, seed=seed,
                           num_workers=args.num_workers)
     state = create_train_state(cfg, model,

@@ -109,7 +109,8 @@ class DenseEncoder(nn.Module):
         kind32 = "ref" if cfg.with_line else "plain"
         self.dense_transformer = SwinLayer(D, cfg.dense_trans_layers[0],
                                            heads, ws, mr, kind32,
-                                           use_pallas=cfg.use_pallas)
+                                           use_pallas=cfg.use_pallas,
+                                           remat=cfg.remat)
         self.depth_pred32 = DepthHead(D, tC)
         # which class layers get reference points: the lines at 1/16, the
         # points sampled at 1/16 (kept at 1/4 unless resampled at 1/8)
@@ -120,7 +121,8 @@ class DenseEncoder(nn.Module):
                 dim, cfg.class_trans_layers[i], heads, ws, mr, "class", tC,
                 tuple(g and has_ref[i] for g in cfg.group_attention_layers[i]),
                 use_pallas=cfg.use_pallas,
-                token_fuse=cfg.class_tokenfuse_layers[i] and has_ref[i])
+                token_fuse=cfg.class_tokenfuse_layers[i] and has_ref[i],
+                remat=cfg.remat)
 
         self.proj_class1 = nn.Linear(D, D // 2)
         self.proj_backbn1 = ConvA(c3, D // 2)

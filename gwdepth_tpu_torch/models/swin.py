@@ -32,6 +32,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
 from gwdepth_tpu_torch.ops.ref_attn_diffusion import (diffusion_torch,
@@ -403,13 +404,18 @@ class SwinBlock(nn.Module):
 class SwinLayer(nn.Module):
     """`blocks.N`: SwinBlocks with alternating shift 0 / ws//2, block i
     with group attention where `group_blocks[i]`; `use_pallas` reaches the
-    blocks' diffusion (K1)."""
+    blocks' diffusion (K1). With `remat`, a block called with gradients
+    on keeps only its inputs and runs again in the backward
+    (`torch.utils.checkpoint`, as the JAX package's `nn.remat`); the
+    blocks draw no random numbers, so the recompute is the same."""
 
     def __init__(self, dim: int, depth: int, num_heads: int,
                  window_size: int, mlp_ratio: float, attn_kind: str,
                  token_dim: int = 0, group_blocks: Tuple[bool, ...] = (),
-                 use_pallas: bool = False, token_fuse: bool = False):
+                 use_pallas: bool = False, token_fuse: bool = False,
+                 remat: bool = False):
         super().__init__()
+        self.remat = remat
         self.blocks = nn.ModuleList(
             SwinBlock(dim, num_heads, window_size,
                       0 if i % 2 == 0 else window_size // 2, mlp_ratio,
@@ -420,7 +426,12 @@ class SwinLayer(nn.Module):
 
     def forward(self, x, ref_coords=None, ref_pos=None, depth_token=None,
                 seg_token=None, token_pos=None):
+        remat = self.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x, depth_token, seg_token = blk(x, ref_coords, ref_pos,
-                                            depth_token, seg_token, token_pos)
+            args = (x, ref_coords, ref_pos, depth_token, seg_token, token_pos)
+            if remat:
+                x, depth_token, seg_token = torch.utils.checkpoint.checkpoint(
+                    blk, *args, use_reentrant=False)
+            else:
+                x, depth_token, seg_token = blk(*args)
         return x, depth_token, seg_token

@@ -6,7 +6,10 @@ train step = forward (train mode, dropout from the step's generator) ->
 Hungarian set criterion (weighted CE + 5 * L1 over the final and aux
 layers) + multi-scale SiLog (weights 1/4, 1/4, 1/4, 1 against
 nearest-downsampled GT, mask 0.2 m <= depth < max_depth) + 2 x seg CE ->
-backward -> clip 0.1 -> grouped AdamW. `grad_accum` A > 1 splits the
+backward -> clip 0.1 -> grouped AdamW. With `with_plane_norm_loss` (and
+both branches) the step also logs `loss_plane`, the plane-normal loss x
+`plane_norm_loss_coef`, which the total never includes (the original
+logs it and does not optimize it). `grad_accum` A > 1 splits the
 batch strided (image i -> microbatch i % A) and applies the mean of the A
 microbatch gradients once.
 
@@ -30,7 +33,8 @@ import torch
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.data.batch import Batch
 from gwdepth_tpu_torch.losses import (line_set_criterion,
-                                      multiscale_depth_loss, seg_ce_loss)
+                                      multiscale_depth_loss, plane_norm_loss,
+                                      seg_ce_loss)
 from gwdepth_tpu_torch.parallel.train_state import TrainState
 
 
@@ -65,6 +69,13 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
             * cfg.seg_loss_weight
         logs["loss_seg"] = loss_seg
         total = total + loss_depth + loss_seg
+        if cfg.with_plane_norm_loss and cfg.with_line:
+            # logged only: no graph, so its (B, 28, H, W) masks are freed
+            with torch.no_grad():
+                lp = plane_norm_loss(outputs["pred_depth"][-1],
+                                     outputs["pred_lines"],
+                                     outputs["pred_logits"], valid)
+            logs["loss_plane"] = lp * cfg.plane_norm_loss_coef
     logs["loss"] = total
     return total, logs
 

@@ -112,6 +112,51 @@ def test_eval_sample_matches_jax(datasets, idx):
                  jds.GlassRGBDDataset(jcfg, "val")[idx])
 
 
+@pytest.fixture(scope="module")
+def rhint_dir(dataset_root):
+    """Seeded reflection-hint jsons ([row, col] points) for every scene
+    but the last validation one, which has no file; one scene's hints
+    outnumber `max_rhint_points`."""
+    d = dataset_root / "rhint"
+    d.mkdir()
+    rng = np.random.default_rng(4)
+    names = (dataset_root / "jax" / "train.txt").read_text().split() + \
+        (dataset_root / "jax" / "val.txt").read_text().split()
+    for i, name in enumerate(names[:-1]):
+        n = 60 if i == 1 else int(rng.integers(0, 9))
+        pts = np.stack([rng.uniform(0, 120, n), rng.uniform(0, 160, n)], 1)
+        (d / f"{name}.json").write_text(json.dumps(
+            {"rhint_points": pts.round(2).tolist()}))
+    return d
+
+
+@pytest.mark.parametrize("split,idx,seed", [("train", 0, 3), ("train", 1, 5),
+                                            ("val", 0, None),
+                                            ("val", 1, None)])
+def test_reflection_sample_matches_jax(dataset_root, rhint_dir, split, idx,
+                                       seed):
+    """`with_reflection` with a hint directory: the padded points and
+    mask of each sample, the hints flipped to [x, y] and moved into the
+    canvas frame; a scene without a file gets an all-False mask."""
+    paths = dict(_paths(dataset_root / "jax"), with_reflection=True,
+                 glassrgbd_rhint_points_path=str(rhint_dir))
+    got = pds.GlassRGBDDataset(tiny_test_config(**paths), split
+                               ).__getitem__(idx, seed=seed)
+    want = jds.GlassRGBDDataset(jax_tiny(**paths), split
+                                ).__getitem__(idx, seed=seed)
+    _equal_items(got, want)
+    assert got["reflection_points"].shape == (50, 2)
+    if split == "train" and idx == 1:
+        assert got["reflection_mask"].all()       # 60 hints, 50 slots
+    if split == "val" and idx == 1:
+        assert not got["reflection_mask"].any()   # no hint file
+    # without the hint directory the flag alone adds nothing, as in JAX
+    bare = dict(_paths(dataset_root / "jax"), with_reflection=True)
+    item = pds.GlassRGBDDataset(tiny_test_config(**bare), split
+                                ).__getitem__(idx, seed=seed)
+    assert "reflection_points" not in item
+
+
 def test_eval_loader_batches_match_jax(datasets):
     pcfg, jcfg = datasets
     pl = pds.Loader(pds.GlassRGBDDataset(pcfg, "val"), batch_size=2,

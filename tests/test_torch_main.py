@@ -3,8 +3,9 @@
 Two epochs of the tiny config on four small synthetic scenes: it writes
 `log.txt` and `eval_results.txt` in the JAX package's formats and a
 checkpoint, `--resume` continues from the next epoch with the optimizer
-state, `--eval` reads the checkpoint back, and every flag the port does
-not carry stops the run.
+state, `--eval` reads the checkpoint back, every flag the port does not
+carry stops the run, and the training flags it carries since the plane
+loss, reflection hints, remat and COCO-lines slice each run an epoch.
 """
 
 import ast
@@ -110,12 +111,58 @@ def test_main_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "4,2"], ["--mesh", "8"], ["--bf16"], ["--remat"],
-    ["--coco_path", "x"], ["--frozen_weights", "x.pth"], ["--pre_norm"],
-    ["--with_plane_norm_loss"], ["--with_reflection"]])
+    ["--mesh", "4,2"], ["--mesh", "8"], ["--bf16"], ["--pre_norm"]])
 def test_main_refuses_what_the_port_lacks(tmp_path, flag):
     with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
         pmain.main(_args(tmp_path, tmp_path / "o", *flag))
+
+
+@pytest.mark.parametrize("flag", ["with_plane_norm_loss", "with_reflection",
+                                  "remat", "coco_path", "frozen_weights"])
+def test_main_runs_the_training_flags(run, tmp_path, capsys, flag):
+    """Each flag that the port once refused runs one epoch (2 steps) and
+    its eval: `--with_plane_norm_loss` logs a finite `loss_plane` (at 28
+    queries, the loss's own `num_ref`);
+    `--with_reflection` only sets the config flag; `--remat` recomputes
+    every Swin layer of the dense encoder; `--coco_path` trains on a
+    COCO-lines set; `--frozen_weights` starts from the first run's
+    checkpoint."""
+    from test_torch_coco_lines import write_coco_set
+
+    extra = {"with_plane_norm_loss": ["--with_plane_norm_loss",
+                                      "--num_queries", "28"],
+             "with_reflection": ["--with_reflection"],
+             "remat": ["--remat"],
+             "frozen_weights": ["--frozen_weights", str(
+                 run["out"] / "checkpoints" / "checkpoint.pth")]}.get(flag, [])
+    argv = _args(run["root"], tmp_path / "o", "--epochs", "1", *extra)
+    if flag == "coco_path":
+        coco = write_coco_set(tmp_path / "coco", n=4)
+        argv += ["--coco_path", str(coco / "imgs"),
+                 "--coco_ann_train", str(coco / "lines_train2017.json"),
+                 "--coco_ann_val", str(coco / "lines_val2017.json")]
+    args = pmain.build_argparser().parse_args(argv)
+    cfg = pmain.config_from_args(args)
+    pmain._refuse(args, cfg)
+    state = pmain.main(argv)
+    assert state.step == 2
+    log = json.loads((tmp_path / "o" / "log.txt").read_text())
+    assert all(v == v for v in log.values())              # no NaN
+    keys = [k[6:] for k in log if k.startswith("train_")]
+    if flag == "with_plane_norm_loss":
+        assert keys == sorted(TRAIN_KEYS + ["loss_plane"])
+        assert state.model.cfg.num_queries == 28
+    else:
+        assert keys == TRAIN_KEYS
+    assert state.model.cfg.with_reflection == (flag == "with_reflection")
+    remat = {layer.remat for layer in state.model.dense_encoder.modules()
+             if hasattr(layer, "remat")}
+    assert remat == {flag == "remat"}
+    if flag == "frozen_weights":
+        # every encoder, decoder and head tensor of the first run
+        keep = ("encoder", "decoder", "class_embed", "lines_embed")
+        n = sum(any(t in k for t in keep) for k in run["ckpt"]["model"])
+        assert f": {n} tensors loaded" in capsys.readouterr().out
 
 
 def test_main_carries_the_dense_encoder_gates(tmp_path):

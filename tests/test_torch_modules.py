@@ -158,6 +158,26 @@ def test_resnet_matches():
         assert np.array_equal(g.numpy(), np.asarray(w))
 
 
+def test_resnet101_matches_jax():
+    """The ResNet-101 backbone of the `--backbone resnet101` recipes at
+    full width (23 blocks in layer3), its JAX-initialized weights through
+    the bridge, held at 1e-4."""
+    rng = np.random.default_rng(4)
+    x = rng.normal(size=(2, 64, 96, 3)).astype(np.float32)
+    jm = jresnet.ResNetBackbone("resnet101")
+    params = jax.jit(jm.init)(jax.random.PRNGKey(1), jnp.asarray(x))["params"]
+    want = jax.jit(jm.apply)({"params": params}, jnp.asarray(x))
+    m = _load(resnet.ResNetBackbone("resnet101"), "backbone.0.body.", params,
+              lambda p: {"backbone": p})
+    assert len(m.layer3) == 23 and sum(
+        p.numel() for p in m.parameters()) > 42e6
+    with torch.no_grad():
+        got = m(_t(x))
+    for g, w in zip(got, want):
+        assert tuple(g.shape) == w.shape
+        _close(g, w, 1e-4)
+
+
 def test_detr_transformer_matches():
     rng = np.random.default_rng(4)
     B, N, C, Q = 2, 12, 32, 6
