@@ -111,11 +111,29 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               line-only, bs1) on a COCO-lines set written from phase 7's
               scenes: 2 steps, eval, then --eval --benchmark; no kernel
               launches; the tensors loaded and the step times.
+  16. export  the shipped forward through `gwdepth_tpu_torch.export.main
+              --resume` (seeded weights saved as a checkpoint) at
+              768x1024 bs1 on the card: no launch while it traces, K1 x4
+              and K2 x25 custom-op nodes in the artifact; a fresh process
+              loads it (no `gwdepth_tpu_torch.models` imported) and
+              serves phase 5's three images (K1 4, K2 25 launches an
+              image), held against the eager forward of the same weights
+              at phase 4's limits; export and load time, size, median
+              latency, busy time and idle share beside eager's;
+  17. bf16    `main.main --bf16 --use_pallas` for one epoch on phase 7's
+              scenes (per step K1 4, K2 25 and 51 backward; every K1 and
+              K2 input float32), the median of 8 steps after 2 warm-ups,
+              busy time, idle share and peak memory beside phase 7's
+              float32 step; the bf16 forward at 768x1024 bs1; the first
+              bf16 step's loss within 0.1 |f32| + 0.05 of the float32
+              step's; the bf16 forward card vs CPU at 128x192 (see
+              `_bf16_card_vs_cpu`). Then full float32 precision again.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
 phase 4's forward and phase 7's first train run, times summed over its
-serving sites, `train_*` over its train sites), and the last line is
+serving sites, `train_*` over its train sites; every kernel also its
+launches in phases 10-17), the total wall time, and the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -495,6 +513,34 @@ def _rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a - b).norm() / b.norm().clamp_min(1e-12))
 
 
+# the outputs that two forwards are held at, each with its limit: max-abs
+# for the line heads, relative L2 for the full-resolution depth and the seg
+FORWARD_LIMITS = {"pred_logits": LINE_TOL, "pred_lines": LINE_TOL,
+                  "pred_depth[-1]": DENSE_REL_L2_TOL,
+                  "pred_seg": DENSE_REL_L2_TOL}
+# the same outputs in the order an exported program returns them
+EXPORT_KEYS = ("pred_depth[-1]", "pred_seg", "pred_logits", "pred_lines")
+
+
+def forward_outputs(out) -> dict:
+    """The held outputs of a model forward, on the CPU."""
+    return {k: (out["pred_depth"][-1] if k == "pred_depth[-1]"
+                else out[k]).cpu() for k in FORWARD_LIMITS}
+
+
+def forward_gaps(a: dict, b: dict) -> dict:
+    """Each held output of `a` against `b`'s (b the reference)."""
+    return {k: (float((a[k].cpu() - b[k].cpu()).abs().max())
+                if FORWARD_LIMITS[k] == LINE_TOL else
+                _rel_l2(a[k].cpu(), b[k].cpu())) for k in FORWARD_LIMITS}
+
+
+def check_forward_gaps(gaps: dict, what: str) -> None:
+    for k, v in gaps.items():
+        assert v <= FORWARD_LIMITS[k], \
+            f"{k}: {what} {v} > {FORWARD_LIMITS[k]} ({gaps})"
+
+
 def _forward_median_ms(model, x, n: int = 12, skip: int = 2) -> float:
     with torch.no_grad():
         times = []
@@ -566,17 +612,8 @@ def phase_model(card: str):
         out_cpu = model_cpu(img)
     log(f"[model] CPU forward of the same port: "
         f"{time.perf_counter() - t0:.1f} s")
-    cmp = {}
-    for k in ("pred_logits", "pred_lines"):
-        a, b = out[k].cpu(), out_cpu[k]
-        cmp[k] = float((a - b).abs().max())
-        assert cmp[k] <= LINE_TOL, f"{k}: card vs CPU {cmp[k]} > {LINE_TOL}"
-    for k, a, b in (("pred_depth[-1]", out["pred_depth"][-1],
-                     out_cpu["pred_depth"][-1]),
-                    ("pred_seg", out["pred_seg"], out_cpu["pred_seg"])):
-        cmp[k] = _rel_l2(a.cpu(), b)
-        assert cmp[k] <= DENSE_REL_L2_TOL, \
-            f"{k}: card vs CPU rel L2 {cmp[k]} > {DENSE_REL_L2_TOL}"
+    cmp = forward_gaps(forward_outputs(out), forward_outputs(out_cpu))
+    check_forward_gaps(cmp, "card vs CPU")
     log("[model] card vs CPU: " + json.dumps(cmp))
 
     # the same weights without the kernels, as use_pallas=False routes
@@ -1034,15 +1071,17 @@ def phase_train(card: str, tmp: str):
         assert torch.isfinite(vec).all(), "non-finite train loss"
     step_ms = float(np.median(times))
     matcher_ms = float(np.median(solve))
+    peak = torch.cuda.max_memory_allocated()
     log(f"[train] train step bs{TRAIN_BS} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
         f"median {step_ms:.3f} ms over {len(times)} steps "
         f"({json.dumps(times)}) on {card}; host matcher solve "
         f"{matcher_ms:.3f} ms/step, share {matcher_ms / step_ms:.4f}; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        f"peak memory {peak / 2**30:.2f} GiB")
     prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
                           "step_ms", "train-profile")
     return runs, {"step_ms": step_ms, "matcher_ms": matcher_ms,
                   "step_times": times, "profile": prof, "args": args,
+                  "peak_bytes": peak,
                   "root": root, "out": out, "n_train": n_train,
                   "n_val": n_val}
 
@@ -1607,24 +1646,23 @@ def k1_backward_events():
     (start, end) pairs."""
     from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
 
-    fn = k1_mod._RefAttnDiffusion
-    orig = fn.backward
+    orig = k1_mod.diffusion_vjp
     pairs = []
 
-    def timed(ctx, ct):
+    def timed(*args):
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        out = orig(ctx, ct)
+        out = orig(*args)
         e.record()
         pairs.append((s, e))
         return out
 
-    fn.backward = staticmethod(timed)
+    k1_mod.diffusion_vjp = timed
     try:
         yield pairs
     finally:
-        fn.backward = staticmethod(orig)
+        k1_mod.diffusion_vjp = orig
 
 
 @contextlib.contextmanager
@@ -2395,9 +2433,427 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict,
     ]
 
 
+# ---------------------------------------------------------------------------
+# export (phase 16) and the bf16 compute path (phase 17)
+# ---------------------------------------------------------------------------
+
+# phase 16's serving process: loads the artifact with nothing of the
+# model code, runs it on the saved canvases with the launch counts zeroed
+# just before each image and read just after, times it, and reports what
+# it imported. argv: artifact, inputs npz, outputs npz, result json.
+EXPORT_SERVER = r"""
+import json, sys, time
+import numpy as np
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+art, inp, outp, resp = sys.argv[1:5]
+t0 = time.perf_counter()
+torch.zeros(1, device="cuda")
+torch.cuda.synchronize()
+cuda_init_s = time.perf_counter() - t0
+t0 = time.perf_counter()
+from gwdepth_tpu_torch.export import load_exported
+call = load_exported(art)
+torch.cuda.synchronize()
+load_s = time.perf_counter() - t0
+k1 = sys.modules["gwdepth_tpu_torch.ops.ref_attn_diffusion"]
+k2 = sys.modules["gwdepth_tpu_torch.ops.fused_conv"]
+with np.load(inp) as z:
+    xs = torch.from_numpy(z["x"]).cuda()
+    vs = torch.from_numpy(z["valid"]).cuda()
+outs, launches = [], []
+for i in range(xs.shape[0]):
+    torch.cuda.synchronize()
+    k1.reset_counts()
+    k2.reset_counts()
+    o = call(xs[i:i + 1], vs[i:i + 1])
+    torch.cuda.synchronize()
+    launches.append({"k1": k1.ref_attn_diffusion.launches,
+                     "k2": k2.conv3x3_ln_act.launches,
+                     "k2_bwd": k2.conv3x3_ln_act.bwd_launches})
+    outs.append([t.cpu().numpy() for t in o])
+mods = sorted(m for m in sys.modules if m.startswith("gwdepth"))
+times = []
+for i in range(12):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    call(xs[:1], vs[:1])
+    torch.cuda.synchronize()
+    if i >= 2:
+        times.append((time.perf_counter() - t0) * 1e3)
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
+    call(xs[:1], vs[:1])
+    torch.cuda.synchronize()
+spans = sorted((e.time_range.start, e.time_range.end)
+               for e in p.events() if e.device_type == DeviceType.CUDA)
+busy, end = 0.0, -1.0
+for s, e in spans:
+    if e > end:
+        busy += e - max(s, end)
+        end = e
+np.savez(outp, **{f"{i}_{j}": a for i, o in enumerate(outs)
+                  for j, a in enumerate(o)})
+from gwdepth_tpu_torch.ops import window_msa as wm
+launches_k34 = {"k3": wm.window_msa_kernel.launches,
+                "k4": wm.layout_fence.launches}
+json.dump({"load_s": load_s, "cuda_init_s": cuda_init_s, "in_avals": [[list(s), str(d)]
+                                          for s, d in call.in_avals],
+           "launches": launches, "k34": launches_k34, "modules": mods,
+           "times": times, "median_ms": float(np.median(times)),
+           "busy_ms": busy / 1e3 if spans else None,
+           "kernels": len(spans)}, open(resp, "w"))
+"""
+
+
+def op_dispatch_ms() -> dict:
+    """What the custom-op binding adds to a call on the host: CUDA events
+    around the public entry (through the op) and around the same launch
+    without the op (`_launch`), medians of 30, at a serving K1 plane and
+    a serving K2 link (1/4, 160 -> 160 channels, GELU, LayerNorm)."""
+    from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    a = torch.randn((1, 980, 40, 16), device="cuda", generator=g)
+    w = 0.1 * torch.randn((3, 3, 16, 16), device="cuda", generator=g)
+    b = 0.1 * torch.randn((16,), device="cuda", generator=g)
+    x = torch.randn((1, 192, 256, 160), device="cuda", generator=g)
+    w2 = 0.05 * torch.randn((3, 3, 160, 160), device="cuda", generator=g)
+    g2 = torch.ones((160,), device="cuda")
+    b2 = torch.zeros((160,), device="cuda")
+    with torch.no_grad():
+        res = {"k1_op_ms": time_ms(lambda: ref_attn_diffusion(a, w, b)),
+               "k1_launch_ms": time_ms(lambda: k1_mod._launch(a, w, b)),
+               "k2_op_ms": time_ms(lambda: conv3x3_ln_act(
+                   x, w2, g2, b2, act="gelu")),
+               "k2_launch_ms": time_ms(lambda: fused_conv._launch(
+                   x, w2, g2, b2, None, "gelu", True))}
+    log(f"[export] custom-op binding against a bare launch, by events: "
+        f"{json.dumps(res)}")
+    return res
+
+
+def phase_export(card: str, tmp: str) -> dict:
+    """Phase 16: the shipped forward exported on the card through
+    `export.main --resume` (seeded weights saved as a checkpoint), no
+    launch while it traces; the artifact's graph holds K1 x4 and K2 x25
+    as custom-op nodes; a fresh process loads it without the model code
+    and serves phase 5's three images (K1 4 and K2 25 launches an image),
+    held against the eager forward of the same weights at phase 4's
+    limits; latency, busy time and idle share beside eager's."""
+    from gwdepth_tpu_torch import export
+    from gwdepth_tpu_torch.predict import preprocess
+    from PIL import Image
+
+    cfg = GWDepthConfig(dropout=0.0, use_pallas=True)
+    model = build_glassrgbd(cfg, SEED + 5, device="cpu")
+    ckpt = os.path.join(tmp, "export_ckpt.pth")
+    torch.save({"model": model.state_dict()}, ckpt)
+    art = os.path.join(tmp, "model.pt2")
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    export.main(["--output", art, "--resume", ckpt, "--device", "cuda"])
+    export_s = time.perf_counter() - t0
+    n = _counts()
+    assert n["k1"] == n["k2"] == 0, f"a launch while tracing: {n}"
+    program = torch.export.load(art)
+    targets = [str(nd.target) for nd in program.graph.nodes
+               if nd.op == "call_function"]
+    nodes = {"k1": targets.count("gwdepth.ref_attn_diffusion.default"),
+             "k2": targets.count("gwdepth.conv3x3_ln_act.default")}
+    del program
+    assert nodes == {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD}, nodes
+    size_mb = os.path.getsize(art) / 1e6
+
+    src = os.path.join(tmp, "export_images")
+    write_serve_images(src)
+    xs, vs = [], []
+    for name in SERVE_SIZES:
+        canvas, valid, _ = preprocess(
+            Image.open(os.path.join(src, f"{name}.png")), cfg.eval_hw)
+        xs.append(canvas)
+        vs.append(valid)
+    inp = os.path.join(tmp, "export_inputs.npz")
+    np.savez(inp, x=np.stack(xs), valid=np.stack(vs))
+    outp = os.path.join(tmp, "export_outputs.npz")
+    resp = os.path.join(tmp, "export_result.json")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=repo)
+    subprocess.run([sys.executable, "-c", EXPORT_SERVER, art, inp, outp,
+                    resp], check=True, env=env, cwd=repo, timeout=600)
+    res = json.load(open(resp))
+    assert not [m for m in res["modules"]
+                if m.startswith("gwdepth_tpu_torch.models")], res["modules"]
+    per_image = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                 "k2_bwd": 0}
+    assert all(l == per_image for l in res["launches"]), res["launches"]
+    assert res["k34"] == {"k3": 0, "k4": 0}, res["k34"]
+
+    eager = model.to("cuda").eval()
+    cmp = []
+    with np.load(outp) as z, torch.no_grad():
+        for i, (x, v) in enumerate(zip(xs, vs)):
+            o = eager(torch.from_numpy(x[None]).cuda(),
+                      torch.from_numpy(v[None]).cuda())
+            got = {k: torch.from_numpy(z[f"{i}_{j}"])
+                   for j, k in enumerate(EXPORT_KEYS)}
+            cmp.append(forward_gaps(got, forward_outputs(o)))
+            check_forward_gaps(cmp[-1], f"image {i}: artifact vs eager")
+    x0 = torch.from_numpy(xs[0][None]).cuda()
+    v0 = torch.from_numpy(vs[0][None]).cuda()
+    # the eager forward against itself on the first image: what the card
+    # moves from run to run, beside the artifact's gap
+    with torch.no_grad():
+        r = [eager(x0, v0) for _ in range(2)]
+    rerun = forward_gaps(forward_outputs(r[1]), forward_outputs(r[0]))
+    del r
+    eager_ms = _forward_median_ms(lambda x: eager(x, v0), x0)
+    with torch.no_grad():
+        eprof = profile_device(lambda: eager(x0, v0), eager_ms, "forward_ms",
+                               "export-eager-profile")
+    # the artifact again in this process, timed and profiled beside eager
+    # with the profiler in the same state
+    call = export.load_exported(art)
+    prog_ms = _forward_median_ms(lambda x: call(x, v0), x0)
+    pprof = profile_device(lambda: call(x0, v0), prog_ms, "forward_ms",
+                           "export-program-profile")
+    del call
+    busy = res["busy_ms"]
+    dispatch = op_dispatch_ms()
+    out = {"export_s": export_s, "load_s": res["load_s"],
+           "op_dispatch": dispatch,
+           "cuda_init_s": res["cuda_init_s"], "eager_rerun": rerun,
+           "artifact_mb": size_mb, "nodes": nodes,
+           "launches_per_image": res["launches"], "vs_eager": cmp,
+           "exported_ms": res["median_ms"], "exported_busy_ms": busy,
+           "exported_idle_share": (max(0.0, 1 - busy / res["median_ms"])
+                                   if busy else None),
+           "exported_kernels": res["kernels"], "eager_ms": eager_ms,
+           "eager_busy_ms": eprof.get("device_busy_ms"),
+           "eager_idle_share": eprof.get("device_idle_share"),
+           "eager_kernels": eprof.get("device_kernels"),
+           "program_here_ms": prog_ms,
+           "program_here_busy_ms": pprof.get("device_busy_ms"),
+           "program_here_idle_share": pprof.get("device_idle_share"),
+           "program_here_kernels": pprof.get("device_kernels"),
+           "in_avals": res["in_avals"]}
+    log(f"[export] {json.dumps(out)} on {card}")
+    log("[export] vs eager, full precision: " +
+        "; ".join(", ".join(f"{k} {v!r}" for k, v in r.items())
+                  for r in cmp))
+    del eager
+    torch.cuda.empty_cache()
+    return {**out, "launches": {"k1": sum(l["k1"] for l in res["launches"]),
+                                "k2": sum(l["k2"] for l in res["launches"]),
+                                "k2_bwd": 0, **res["k34"]}}
+
+
+BF16_STEPS = 8                # timed bf16 train steps, after 2 warm-ups
+# the bf16 step's first loss against the float32 step's: the JAX package's
+# own bound (tests/test_train_step.py:273-274), 0.1 |f32| + 0.05
+BF16_LOSS_REL = 0.1
+BF16_LOSS_ABS = 0.05
+# card vs CPU in bf16: the images are rounded to bf16 before the first
+# conv, so a 1e-7 control vanishes there; the same control at one bf16
+# step (2^-8 relative) is the one that moves the outputs
+BF16_STEP = 2.0 ** -8
+
+
+@contextlib.contextmanager
+def kernel_input_dtypes():
+    """The dtypes of the planes and activations that reach K1's and K2's
+    launches inside, by a spy on each `_launch`."""
+    from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
+
+    seen = set()
+    origs = {k1_mod: k1_mod._launch, fused_conv: fused_conv._launch}
+
+    def spy(orig, name):
+        def f(x, *a, **kw):
+            seen.add((name, str(x.dtype)))
+            return orig(x, *a, **kw)
+        return f
+
+    k1_mod._launch = spy(origs[k1_mod], "k1")
+    fused_conv._launch = spy(origs[fused_conv], "k2")
+    try:
+        yield seen
+    finally:
+        for mod, orig in origs.items():
+            mod._launch = orig
+
+
+def _bf16_card_vs_cpu() -> dict:
+    """The bf16 forward at the shipped widths on a 128x192 canvas, card
+    (use_pallas, TF32 for float32 matmuls and convs, as `--bf16` sets)
+    against the CPU; the control: the CPU on images perturbed by 1e-7 and
+    by one bf16 step (3 draws)."""
+    cfg = GWDepthConfig(dropout=0.0, eval_hw=(128, 192), use_pallas=True,
+                        dtype="bfloat16")
+    model_cpu = build_glassrgbd(cfg, SEED, device="cpu")
+    model = copy.deepcopy(model_cpu).to("cuda")
+    gen = torch.Generator().manual_seed(SEED + 9)
+    x = torch.randn((1, 128, 192, 3), generator=gen)
+
+    with torch.no_grad():
+        cpu = forward_outputs(model_cpu(x))
+        card = forward_outputs(model(x.cuda()))
+        ctl = {}
+        for eps in (1e-7, BF16_STEP):
+            draws = [forward_gaps(forward_outputs(model_cpu(x * (
+                1 + eps * torch.randn(x.shape, generator=gen)))), cpu)
+                for _ in range(3)]
+            ctl[eps] = {k: max(d[k] for d in draws) for k in cpu}
+    gap = forward_gaps(card, cpu)
+    control = {k: CONTROL_MARGIN * max(ctl[e][k] for e in ctl) for k in cpu}
+    held = {k: max(FORWARD_LIMITS[k], control[k]) for k in cpu}
+    out = {"gap": gap, "limit": FORWARD_LIMITS, "control_1e-7": ctl[1e-7],
+           "control_bf16_step": ctl[BF16_STEP], "held_at": held,
+           "control_exceeds_limits": {k: control[k] > FORWARD_LIMITS[k]
+                                      for k in cpu}}
+    assert all(torch.isfinite(v).all() for v in card.values()), out
+    for k in cpu:
+        assert gap[k] <= held[k], (k, out)
+    return out
+
+
+def phase_bf16(card: str, train: dict) -> dict:
+    """Phase 17: `main.main --bf16 --use_pallas` for one epoch on phase 7's
+    scenes (K1 4, K2 25 and 51 launches a step; every K1 and K2 input
+    float32), then BF16_STEPS timed steps after 2 warm-ups, peak memory
+    and a profiled step beside phase 7's float32 step; the bf16 eval
+    forward at 768x1024 bs1; the first bf16 step's loss against the
+    float32 step's on the same weights and batch; the bf16 forward card
+    vs CPU (`_bf16_card_vs_cpu`). Restores full float32 precision after."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import (create_train_state,
+                                            make_train_step)
+
+    out_dir = os.path.join(os.path.dirname(train["out"]), "bf16")
+    args = _with_args(train["args"], output_dir=out_dir) + \
+        ["--bf16", "--epochs", "1"]
+    steps, n_val = train["n_train"] // TRAIN_BS, train["n_val"]
+    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    try:
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        with kernel_input_dtypes() as dtypes:
+            state = train_main.main(args)
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        n = _counts()
+        want = _expected_counts(steps, n_val)
+        log(f"[bf16] main.main --bf16 4 steps + eval: {secs:.1f} s, "
+            f"launches {n}, expected {want}; K1/K2 input dtypes "
+            f"{sorted(dtypes)}")
+        assert n == want, (n, want)
+        assert dtypes == {("k1", "torch.float32"), ("k2", "torch.float32")}, \
+            f"a bf16 tensor reached K1 or K2: {dtypes}"
+        cfg = state.model.cfg
+        assert cfg.dtype == "bfloat16" and cfg.use_pallas
+        assert all(p.dtype == torch.float32
+                   for p in state.model.parameters())
+        assert torch.backends.cudnn.allow_tf32
+        logs = [json.loads(ln) for ln in open(os.path.join(out_dir,
+                                                           "log.txt"))]
+        assert len(logs) == 1 and all(np.isfinite(v)
+                                      for v in logs[0].values()), logs
+
+        loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                        seed=SEED, num_workers=4)
+        batches = [b.to("cuda") for b, _ in loader.epoch(5)]
+        step = make_train_step(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for i in range(2 + BF16_STEPS):
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            state, vec = step(state, batches[i % len(batches)], gen)
+            torch.cuda.synchronize()
+            if i >= 2:
+                times.append((time.perf_counter() - t0) * 1e3)
+            got = _counts()
+            assert {k: got[k] for k in per_step} == per_step, (got, per_step)
+            assert torch.isfinite(vec).all(), "non-finite bf16 train loss"
+        peak = torch.cuda.max_memory_allocated()
+        step_ms = float(np.median(times))
+        prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
+                              "step_ms", "bf16-train-profile")
+        del state, step
+        torch.cuda.empty_cache()
+
+        # the first step of each dtype from the same weights and batch
+        first = {}
+        for dtype in ("float32", "bfloat16"):
+            c = cfg.replace(dtype=dtype)
+            c.set_matmul_precision()
+            model = build_glassrgbd(c, SEED, device="cpu").to("cuda")
+            st = make_train_step(c)
+            _, vec = st(create_train_state(c, model), batches[0],
+                        torch.Generator(device="cuda").manual_seed(SEED))
+            first[dtype] = dict(zip(st.log_keys, vec.tolist()))["loss"]
+            del model, st
+            torch.cuda.empty_cache()
+        f32, bf = first["float32"], first["bfloat16"]
+        assert np.isfinite(bf) and abs(bf - f32) <= \
+            BF16_LOSS_REL * abs(f32) + BF16_LOSS_ABS, first
+
+        # the bf16 eval forward at the serving shape
+        ecfg = GWDepthConfig(dropout=0.0, use_pallas=True, dtype="bfloat16")
+        ecfg.set_matmul_precision()
+        model = build_glassrgbd(ecfg, SEED, device="cuda")
+        x = torch.from_numpy(np.random.default_rng(SEED + 1).normal(
+            size=(1, H_IMG, W_IMG, 3)).astype(np.float32)).cuda()
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            _reset_counts()
+            o = model(x)
+            torch.cuda.synchronize()
+            fn = _counts()
+            assert {k: fn[k] for k in ("k1", "k2")} == {
+                "k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD}, fn
+            assert all(torch.isfinite(t).all() for t in
+                       (o["pred_logits"], o["pred_lines"], o["pred_seg"],
+                        *o["pred_depth"]))
+        fwd_ms = _forward_median_ms(model, x)
+        with torch.no_grad():
+            fprof = profile_device(lambda: model(x), fwd_ms, "forward_ms",
+                                   "bf16-forward-profile")
+        del model
+        torch.cuda.empty_cache()
+        cmp = _bf16_card_vs_cpu()
+    finally:
+        GWDepthConfig().set_matmul_precision()
+    tprof = train["profile"]
+    res = {"seconds": secs, "launches": n, "per_step": per_step,
+           "step_ms": step_ms, "step_times": times, "peak_bytes": peak,
+           "busy_ms": prof.get("device_busy_ms"),
+           "idle_share": prof.get("device_idle_share"),
+           "kernels": prof.get("device_kernels"),
+           "f32_step_ms": train["step_ms"],
+           "f32_busy_ms": tprof.get("device_busy_ms"),
+           "f32_idle_share": tprof.get("device_idle_share"),
+           "f32_peak_bytes": train["peak_bytes"],
+           "first_loss": first, "forward_ms": fwd_ms,
+           "forward_busy_ms": fprof.get("device_busy_ms"),
+           "forward_idle_share": fprof.get("device_idle_share"),
+           "card_vs_cpu": cmp}
+    log(f"[bf16] {json.dumps(res)} on {card}")
+    return res
+
+
 def main(argv=None) -> None:
     argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
         argv)
+    t_start = time.perf_counter()
     smi = probe()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
@@ -2420,6 +2876,8 @@ def main(argv=None) -> None:
         line_only = phase_line_only(train)
         gated_train = phase_gated_train(card, train)
         coco = phase_coco_lines(train)
+        exported = phase_export(card, tmp)
+        bf16 = phase_bf16(card, train)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
 
@@ -2598,6 +3056,9 @@ def main(argv=None) -> None:
         entry["train_gated_remat_run_launches"] = \
             g_runs[True]["launches"][key]
         entry["coco_lines_launches"] = coco["launches"][key]
+        entry["exported_launches"] = exported["launches"][key]
+        entry["bf16_train_run_launches"] = bf16["launches"][key]
+        entry["bf16_train_launches_per_step"] = bf16["per_step"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -2649,7 +3110,12 @@ def main(argv=None) -> None:
         "profile; K2's = phase 6's train links (the same 25). "
         "train_gated_run_launches / _remat_run_launches: main.main's 4 "
         "steps and 2 eval forwards without / with --remat; "
-        "coco_lines_launches: the ResNet-101 COCO-lines run (phase 15).")
+        "coco_lines_launches: the ResNet-101 COCO-lines run (phase 15); "
+        "exported_launches: the exported forward loaded in a fresh "
+        "process, over phase 5's 3 images (phase 16); "
+        "bf16_train_run_launches / _per_step: main.main --bf16 "
+        "--use_pallas, 4 steps and 2 eval forwards / one timed step "
+        "(phase 17).")
     dprof = depth_only["profile"]
     log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
         f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "
@@ -2683,6 +3149,22 @@ def main(argv=None) -> None:
         f"tensors from --frozen_weights, step times "
         f"{json.dumps(coco['step_times'])} ms, train run "
         f"{coco['seconds']:.1f} s, eval {coco['eval_seconds']:.1f} s")
+    log(f"[export] exported forward median {exported['exported_ms']:.3f} "
+        f"ms (busy {exported['exported_busy_ms']}) in its own process, "
+        f"{exported['program_here_ms']:.3f} ms (busy "
+        f"{exported['program_here_busy_ms']}) beside eager "
+        f"{exported['eager_ms']:.3f} ms (busy {exported['eager_busy_ms']}); "
+        f"export {exported['export_s']:.1f} s, load {exported['load_s']:.1f}"
+        f" s, {exported['artifact_mb']:.1f} MB on {card}")
+    log(f"[bf16] step median {bf16['step_ms']:.3f} ms (float32 "
+        f"{bf16['f32_step_ms']:.3f}), busy {bf16['busy_ms']} (float32 "
+        f"{bf16['f32_busy_ms']}), idle {bf16['idle_share']} (float32 "
+        f"{bf16['f32_idle_share']}), peak {bf16['peak_bytes'] / 2**30:.2f} "
+        f"GiB (float32 {bf16['f32_peak_bytes'] / 2**30:.2f}); forward "
+        f"{bf16['forward_ms']:.3f} ms, busy {bf16['forward_busy_ms']}; "
+        f"first loss {json.dumps(bf16['first_loss'])} on {card}")
+    log(f"[total] chip_smoke wall time "
+        f"{time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

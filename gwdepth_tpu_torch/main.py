@@ -19,10 +19,14 @@ and `aph_score`), `--save_dense` the depth/seg grids (`dense_pred`),
 `--save_line` the predicted-vs-GT line overlays (`line_pred`). Training
 writes the first batch's label overlay per epoch to `input_log`.
 
-Every flag of the JAX CLI reaches the run, but three, which stop it
+Every flag of the JAX CLI reaches the run, but two, which stop it
 with an error instead of being ignored (see `_refuse`): `--mesh` other
-than one device, `--bf16`, and `--pre_norm` (which no JAX model reads
-either). `--coco_path` with `--coco_ann_train` / `--coco_ann_val` trains
+than one device, and `--pre_norm` (which no JAX model reads either).
+`--bf16` runs the backbone and the DETR's dense layers in bfloat16, as
+the JAX CLI's (`cfg.dtype`; the parameters, the losses and AdamW stay
+float32), and on the card lets cuBLAS and cuDNN round the float32
+matmuls and convolutions to TF32 (`GWDepthConfig.set_matmul_precision`).
+`--coco_path` with `--coco_ann_train` / `--coco_ann_val` trains
 and evaluates on a COCO-lines set (wireframe, YorkUrban) instead of
 GW-Depth; `--frozen_weights` loads the transformer, dense encoder,
 decoder and line heads of a checkpoint by name and shape, and freezes
@@ -160,8 +164,7 @@ def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
 
 def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
     """Stop on a flag the port does not carry yet."""
-    unsupported = [f"--{name}" for name in ("bf16", "pre_norm")
-                   if getattr(args, name)]
+    unsupported = ["--pre_norm"] if args.pre_norm else []
     if cfg.mesh_shape not in ((-1,), (1,)):
         unsupported.append(f"--mesh {args.mesh}")
     if unsupported:

@@ -10,6 +10,12 @@ Dropout sits at the JAX package's sites (`gwdepth_tpu/models/detr.py:57,
 the FFN hidden layer. It is active only in `train()` mode and draws its
 masks from the `torch.Generator` the caller passes (the train step owns
 one), as flax draws from its "dropout" key.
+
+Precision, as the JAX package's `dtype` (`cfg.compute_dtype`): only the
+attention's `out_proj` and the layers' `linear1` and `linear2` run in
+it (`dense`). In bfloat16 their outputs are bf16, and each residual add
+onto the float32 stream promotes back to float32, so the q/k/v
+projections, the attention, every LayerNorm and `hs` stay float32.
 """
 
 from __future__ import annotations
@@ -32,14 +38,27 @@ def dropout(x: torch.Tensor, p: float, active: bool,
     return torch.where(keep, x / (1.0 - p), torch.zeros_like(x))
 
 
+def dense(layer: nn.Linear, x: torch.Tensor,
+          dtype: torch.dtype) -> torch.Tensor:
+    """flax `nn.Dense(dtype=dtype)`: in bfloat16, x and the float32 weight
+    cast to bf16, the product rounded to bf16, then the bias cast to bf16
+    and added in bf16 (two roundings, as flax); in float32 the layer."""
+    if dtype == torch.float32:
+        return layer(x)
+    return F.linear(x.to(dtype), layer.weight.to(dtype)) + \
+        layer.bias.to(dtype)
+
+
 class MultiheadAttention(nn.Module):
     """torch.nn.MultiheadAttention-compatible in/out projections around
     scaled dot-product attention with an optional key-validity mask."""
 
-    def __init__(self, d_model: int, nheads: int, dropout: float = 0.0):
+    def __init__(self, d_model: int, nheads: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.nheads = nheads
         self.dropout = dropout
+        self.dtype = dtype
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d_model, d_model))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d_model))
         self.out_proj = nn.Linear(d_model, d_model)
@@ -67,15 +86,17 @@ class MultiheadAttention(nn.Module):
         attn = dropout(torch.softmax(logits, dim=-1), self.dropout,
                        self.training, generator)
         out = torch.einsum("bhqk,bhkd->bhqd", attn, v)
-        return self.out_proj(out.transpose(1, 2).reshape(B, Nq, C))
+        return dense(self.out_proj, out.transpose(1, 2).reshape(B, Nq, C),
+                     self.dtype)
 
 
 class EncoderLayer(nn.Module):
     def __init__(self, d_model: int, nheads: int, dim_ff: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(d_model, nheads, dropout)
+        self.dtype = dtype
+        self.self_attn = MultiheadAttention(d_model, nheads, dropout, dtype)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -88,17 +109,21 @@ class EncoderLayer(nn.Module):
         qk = src + pos
         src = self.norm1(src + drop(self.self_attn(qk, qk, src, key_valid,
                                                    generator)))
-        src2 = self.linear2(drop(F.relu(self.linear1(src))))
+        src2 = dense(self.linear2,
+                     drop(F.relu(dense(self.linear1, src, self.dtype))),
+                     self.dtype)
         return self.norm2(src + drop(src2))
 
 
 class DecoderLayer(nn.Module):
     def __init__(self, d_model: int, nheads: int, dim_ff: int,
-                 dropout: float = 0.0):
+                 dropout: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.dropout = dropout
-        self.self_attn = MultiheadAttention(d_model, nheads, dropout)
-        self.multihead_attn = MultiheadAttention(d_model, nheads, dropout)
+        self.dtype = dtype
+        self.self_attn = MultiheadAttention(d_model, nheads, dropout, dtype)
+        self.multihead_attn = MultiheadAttention(d_model, nheads, dropout,
+                                                 dtype)
         self.linear1 = nn.Linear(d_model, dim_ff)
         self.linear2 = nn.Linear(dim_ff, d_model)
         self.norm1 = nn.LayerNorm(d_model, eps=1e-5)
@@ -116,7 +141,9 @@ class DecoderLayer(nn.Module):
         tgt2 = self.multihead_attn(tgt + query_pos, memory + pos, memory,
                                    key_valid, generator)
         tgt = self.norm2(tgt + drop(tgt2))
-        tgt2 = self.linear2(drop(F.relu(self.linear1(tgt))))
+        tgt2 = dense(self.linear2,
+                     drop(F.relu(dense(self.linear1, tgt, self.dtype))),
+                     self.dtype)
         return self.norm3(tgt + drop(tgt2))
 
 
@@ -135,11 +162,14 @@ class DETRTransformer(nn.Module):
     returns every decoder layer's normed state and the encoder memory."""
 
     def __init__(self, d_model: int, nheads: int, enc_layers: int,
-                 dec_layers: int, dim_ff: int, dropout: float = 0.0):
+                 dec_layers: int, dim_ff: int, dropout: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.encoder = _Stack([EncoderLayer(d_model, nheads, dim_ff, dropout)
+        self.encoder = _Stack([EncoderLayer(d_model, nheads, dim_ff, dropout,
+                                            dtype)
                                for _ in range(enc_layers)])
-        self.decoder = _Stack([DecoderLayer(d_model, nheads, dim_ff, dropout)
+        self.decoder = _Stack([DecoderLayer(d_model, nheads, dim_ff, dropout,
+                                            dtype)
                                for _ in range(dec_layers)],
                               nn.LayerNorm(d_model, eps=1e-5))
 

@@ -40,7 +40,9 @@ from gwdepth_tpu_torch.ops.interpolate import resize_nearest_nhwc
 
 
 class ConvA(nn.Module):
-    """k x k conv (with bias, SAME padding) + GELU, NHWC."""
+    """k x k conv (with bias, SAME padding) + GELU, NHWC, in float32: a
+    bf16 input (the backbone's pyramid under `cfg.dtype="bfloat16"`) is
+    cast up, as flax promotes it in a module without a dtype."""
 
     def __init__(self, cin: int, cout: int, kernel: int = 3,
                  dilation: int = 1):
@@ -51,7 +53,8 @@ class ConvA(nn.Module):
 
     def forward(self, x):
         c = self.conv
-        return F.gelu(conv2d_nhwc(x, c.weight, c.bias, padding=c.padding[0],
+        return F.gelu(conv2d_nhwc(x.float(), c.weight, c.bias,
+                                  padding=c.padding[0],
                                   dilation=c.dilation[0]))
 
 

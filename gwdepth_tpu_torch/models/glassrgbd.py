@@ -27,6 +27,16 @@ Training: the backbone stem (`conv1`, `layer1`; its frozen BatchNorms are
 buffers) is built with `requires_grad=False`, the JAX package's "frozen"
 parameter group. Dropout (DETR only, `cfg.dropout`) is active in
 `train()` mode and draws from the `generator` passed to `forward`.
+
+Precision (`cfg.dtype`, `main.py --bf16`), where the JAX package has its
+`compute_dtype`: the images are cast to it, the backbone runs in it
+(`models/resnet.py`) and so does the DETR's `dense` layers
+(`models/detr.py`). Every module that flax builds without a dtype
+promotes the bf16 pyramid to float32: `input_proj`, `dense_input_proj`
+and the dense encoder's `proj_backbn*` (`geometry.ConvA`) cast their
+input up. The position embedding is rounded to the pyramid's dtype, as
+in JAX. So the dense encoder, the decoder, the heads, K1 and K2 see
+float32, and every output is float32. Parameters stay float32.
 """
 
 from __future__ import annotations
@@ -64,7 +74,7 @@ class GlassRGBD(nn.Module):
             self.query_embed = nn.Embedding(cfg.num_queries, cfg.hidden_dim)
             self.transformer = DETRTransformer(
                 cfg.hidden_dim, cfg.nheads, cfg.enc_layers, cfg.dec_layers,
-                cfg.dim_feedforward, cfg.dropout)
+                cfg.dim_feedforward, cfg.dropout, cfg.compute_dtype)
             self.class_embed = nn.Linear(cfg.hidden_dim, cfg.num_classes + 1)
             self.lines_embed = MLP(cfg.hidden_dim, cfg.hidden_dim,
                                    cfg.line_dim, 3)
@@ -99,7 +109,9 @@ class GlassRGBD(nn.Module):
                 pos = sine_posemb_from_mask_nhwc(src_mask, cfg.hidden_dim // 2,
                                                  normalize=True)
             pos = pos.to(src.dtype)
-            proj = conv2d_nhwc(src, self.input_proj.weight,
+            # float32 from here, as flax promotes the bf16 pyramid against
+            # the float32 weights of a module without a dtype
+            proj = conv2d_nhwc(src.float(), self.input_proj.weight,
                                self.input_proj.bias)
             N = proj.shape[1] * proj.shape[2]
             hs, _ = self.transformer(proj.reshape(B, N, cfg.hidden_dim),
@@ -116,7 +128,7 @@ class GlassRGBD(nn.Module):
                     for i in range(cfg.dec_layers - 1)]
 
         if cfg.with_dense:
-            dense_in = conv2d_nhwc(src, self.dense_input_proj.weight,
+            dense_in = conv2d_nhwc(src.float(), self.dense_input_proj.weight,
                                    self.dense_input_proj.bias)
             feats_d, depth_token, seg_token, depth_preds = self.dense_encoder(
                 dense_in, feats, masks, out["pred_lines"], out["pred_logits"])

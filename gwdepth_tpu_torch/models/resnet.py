@@ -4,6 +4,13 @@ Parameter names follow torchvision (`conv1`, `bn1`, `layerN.M.convK`,
 `downsample.{0,1}`), so the original checkpoint loads by name. The
 backbone runs NCHW tensors in channels-last memory and returns the 4-level
 pyramid (1/4, 1/8, 1/16, 1/32) as NHWC views, the JAX package's layout.
+
+Precision follows the images' dtype, as the JAX backbone's `dtype`
+(`cfg.compute_dtype`): in bfloat16 every conv multiplies the bf16
+activations by its float32 weight cast to bf16 and returns bf16, each
+frozen BatchNorm computes its scale and bias in float32 and casts them to
+bf16 before the multiply-add, and the residual adds, ReLUs and the
+max-pool run in bf16. The parameters stay float32.
 """
 
 from __future__ import annotations
@@ -31,11 +38,18 @@ class FrozenBatchNorm2d(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         scale = self.weight * torch.rsqrt(self.running_var + 1e-5)
         bias = self.bias - self.running_mean * scale
-        return x * scale[None, :, None, None] + bias[None, :, None, None]
+        return (x * scale.to(x.dtype)[None, :, None, None]
+                + bias.to(x.dtype)[None, :, None, None])
 
 
 def _conv(cin: int, cout: int, k: int, stride: int = 1) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
+
+
+def conv_as(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The bias-free conv of x with its weight cast to x's dtype."""
+    return F.conv2d(x, conv.weight.to(x.dtype), None, conv.stride,
+                    conv.padding)
 
 
 class Bottleneck(nn.Module):
@@ -56,10 +70,12 @@ class Bottleneck(nn.Module):
                            if downsample else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        identity = x if self.downsample is None else self.downsample(x)
-        y = F.relu(self.bn1(self.conv1(x)))
-        y = F.relu(self.bn2(self.conv2(y)))
-        y = self.bn3(self.conv3(y))
+        identity = x
+        if self.downsample is not None:
+            identity = self.downsample[1](conv_as(self.downsample[0], x))
+        y = F.relu(self.bn1(conv_as(self.conv1, x)))
+        y = F.relu(self.bn2(conv_as(self.conv2, y)))
+        y = self.bn3(conv_as(self.conv3, y))
         return F.relu(y + identity)
 
 
@@ -87,7 +103,7 @@ class ResNetBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor) -> Tuple[torch.Tensor, ...]:
         x = images.permute(0, 3, 1, 2)              # channels-last NCHW view
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.relu(self.bn1(conv_as(self.conv1, x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
         feats = []
         for i in range(4):

@@ -19,17 +19,24 @@ kernel `gwdepth_tpu/ops/fused_conv.py:conv3x3_ln_act`); a CPU tensor
 takes `conv3x3_ln_act_plain`. Nothing falls back: a CUDA tensor the
 kernel cannot take raises, `fast=False` among them.
 
-Gradients: `conv3x3_ln_act` is a `torch.autograd.Function` whose backward
-mirrors the JAX package's `_fused_bwd` (`gwdepth_tpu/ops/fused_conv.py:
-444-489`): it recomputes the pre-LN conv with the same kernel (no LN, no
-activation), runs the per-pixel LayerNorm and activation backward in
-plain torch, computes dx with the kernel on the rotated, io-transposed
-weights (3, 3, Co, Ci), both in the forward's precision, and dw as 9
-shifted-slice float32 matmuls over the unrounded x. dx has Ci output
-channels; above the kernel's `MAX_CO` it is split into equal channel
-pieces, which is exact without a LayerNorm. On a CPU tensor the same
-backward runs with the plain conv in place of the kernel. The residual's
-gradient passes straight through.
+Binding: the kernel is the custom op `gwdepth::conv3x3_ln_act`
+(`torch.library`; `act` "none" for None), so `torch.export` records it
+as one node of the graph. Its real implementation dispatches by device
+and is the only code that reads streams or pointers; its fake
+implementation gives a tracer the float32 (B, H, W, Co) result.
+
+Gradients, registered on the op, mirror the JAX package's `_fused_bwd`
+(`gwdepth_tpu/ops/fused_conv.py:444-489`): the backward recomputes the
+pre-LN conv with the same kernel (no LN, no activation), runs the
+per-pixel LayerNorm and activation backward in plain torch, computes dx
+with the kernel on the rotated, io-transposed weights (3, 3, Co, Ci),
+both in the forward's precision, and dw as 9 shifted-slice float32
+matmuls over the unrounded x. dx has Ci output channels; above the
+kernel's `MAX_CO` it is split into equal channel pieces, which is exact
+without a LayerNorm. On a CPU tensor the same backward runs with the
+plain conv in place of the kernel. The residual's gradient passes
+straight through. The backward's launches go through `_launch`
+directly: they are not yet nodes a tracer of the backward can record.
 
 Counters: `conv3x3_ln_act.launches` counts forward launches and
 `.shape_launches` them by `link_key`; `.bwd_launches` counts backward
@@ -290,13 +297,6 @@ def link_key(x, w, ln_scale=None, residual=None, act=None):
             residual is not None)
 
 
-def _forward(x, w, g, b, r, act, fast):
-    """One forward through the device's implementation."""
-    if x.device.type == "cpu":
-        return conv3x3_ln_act_plain(x, w, g, b, r, act, fast)
-    return _launch(x, w, g, b, r, act, fast)
-
-
 def _conv_bwd(x, w, fast=True, flip=False):
     """Bias-free conv for the backward (no LN, no act) of x with w, or with
     `flip` with w's rotated, io-transposed view (dx): the kernel on the
@@ -351,25 +351,44 @@ def fused_backward(x, w, g, b, act, ct, need_dx=True, fast=True):
     return dx, _weight_grad(x, dc), dg, db
 
 
-class _Conv3x3LnAct(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, w, g, b, r, act, fast):
-        ctx.act = act
-        ctx.fast = fast
-        ctx.has_r = r is not None
-        ctx.save_for_backward(x, w, g, b)
-        return _forward(x, w, g, b, r, act, fast).to(x.dtype)
+@torch.library.custom_op("gwdepth::conv3x3_ln_act", mutates_args=())
+def _op(x: torch.Tensor, w: torch.Tensor, ln_scale: Optional[torch.Tensor],
+        ln_bias: Optional[torch.Tensor], residual: Optional[torch.Tensor],
+        act: str, fast: bool) -> torch.Tensor:
+    """The op's real implementation: the float32 (B, H, W, Co) output;
+    `act` is "none" where the Python entry takes None."""
+    args = (x, w, ln_scale, ln_bias, residual,
+            None if act == "none" else act, fast)
+    if x.device.type == "cpu":
+        return conv3x3_ln_act_plain(*args).float()
+    return _launch(*args)
 
-    @staticmethod
-    def backward(ctx, ct):
-        x, w, g, b = ctx.saved_tensors
-        need = ctx.needs_input_grad
-        dx, dw, dg, db = fused_backward(x, w, g, b, ctx.act, ct,
-                                        need_dx=need[0], fast=ctx.fast)
-        return (None if dx is None else dx.to(x.dtype), dw.to(w.dtype),
-                None if dg is None else dg.to(g.dtype),
-                None if db is None else db.to(b.dtype),
-                ct if ctx.has_r and need[4] else None, None, None)
+
+@_op.register_fake
+def _(x, w, ln_scale, ln_bias, residual, act, fast):
+    return x.new_empty((*x.shape[:3], w.shape[3]), dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    x, w, g, b, r, act, fast = inputs
+    ctx.act = None if act == "none" else act
+    ctx.fast = fast
+    ctx.has_r = r is not None
+    ctx.save_for_backward(x, w, g, b)
+
+
+def _backward(ctx, ct):
+    x, w, g, b = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    dx, dw, dg, db = fused_backward(x, w, g, b, ctx.act, ct,
+                                    need_dx=need[0], fast=ctx.fast)
+    return (None if dx is None else dx.to(x.dtype), dw.to(w.dtype),
+            None if dg is None else dg.to(g.dtype),
+            None if db is None else db.to(b.dtype),
+            ct if ctx.has_r and need[4] else None, None, None)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def conv3x3_ln_act(x: torch.Tensor, w: torch.Tensor,
@@ -378,11 +397,17 @@ def conv3x3_ln_act(x: torch.Tensor, w: torch.Tensor,
                    residual: Optional[torch.Tensor] = None,
                    act: Optional[str] = None,
                    fast: bool = True) -> torch.Tensor:
-    """y = act(LN(conv3x3(x))) [+ residual], differentiable; bf16 taps
-    with float32 accumulation when `fast`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel, forward and backward, and
-    raise for `fast=False`."""
-    return _Conv3x3LnAct.apply(x, w, ln_scale, ln_bias, residual, act, fast)
+    """y = act(LN(conv3x3(x))) [+ residual] in x's dtype, differentiable,
+    through the custom op; bf16 taps with float32 accumulation when
+    `fast`. CPU tensors take the plain version; CUDA tensors launch the
+    kernel, forward and backward, and raise for `fast=False`; other
+    devices raise."""
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_ln_act: no kernel for device {x.device}")
+    if act not in _ACTS:
+        raise ValueError(f"unknown activation {act!r}")
+    return _op(x, w, ln_scale, ln_bias, residual,
+               "none" if act is None else act, fast).to(x.dtype)
 
 
 conv3x3_ln_act.launches = 0

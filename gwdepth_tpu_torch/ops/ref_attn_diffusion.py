@@ -18,17 +18,25 @@ memory and each block sweeps its band in chunks), as at the class
 layers. A CPU tensor takes `ref_attn_diffusion_plain`. Nothing falls
 back: a CUDA tensor that neither schedule takes raises.
 
-Gradients: `ref_attn_diffusion` is a `torch.autograd.Function`. Its
-backward recomputes from the saved inputs and differentiates the 3-step
-diffusion formulation (`diffusion_torch`: `F.conv2d`, parameter-free
-LayerNorm, exact GELU), as the JAX package's `_diff_bwd` differentiates
-`swin.py:diffusion_xla` (`gwdepth_tpu/ops/pallas_kernels.py:151-155`).
-The JAX package has no backward kernel for K1, so the port has none
-either: the backward is plain PyTorch on every device. On the card its
-convolutions run at cuDNN's precision setting
-(`torch.backends.cudnn.allow_tf32`), which the entry points set from the
-config's dtype: full float32 for the shipped config
-(`GWDepthConfig.set_matmul_precision`).
+Binding: the kernel is the custom op `gwdepth::ref_attn_diffusion`
+(`torch.library`), so `torch.export` and other tracers record it as one
+node of the graph. Its real implementation dispatches by device (the
+plain version on the CPU, `_launch` on CUDA) and is the only code that
+reads device properties, streams or pointers; its fake implementation
+gives the float32 result's shape to a tracer without touching the
+device. The launch counts are kept inside the real implementation, so
+they count the launches of an exported program too.
+
+Gradients, registered on the op: the backward recomputes from the saved
+inputs and differentiates the 3-step diffusion formulation
+(`diffusion_torch`: `F.conv2d`, parameter-free LayerNorm, exact GELU),
+as the JAX package's `_diff_bwd` differentiates `swin.py:diffusion_xla`
+(`gwdepth_tpu/ops/pallas_kernels.py:151-155`). The JAX package has no
+backward kernel for K1, so the port has none either: the backward is
+plain PyTorch on every device. On the card its convolutions run at
+cuDNN's precision setting (`torch.backends.cudnn.allow_tf32`), which the
+entry points set from the config's dtype: full float32 for the shipped
+config (`GWDepthConfig.set_matmul_precision`).
 """
 
 from __future__ import annotations
@@ -270,7 +278,6 @@ def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     pl = plan(B, P, R, H, torch.cuda.get_device_properties(
         a.device).multi_processor_count)
     tiled = isinstance(pl, TilePlan)
-    dtype = a.dtype
     a32 = a.float().contiguous()
     w32 = w.float().contiguous()
     b32 = b.float().contiguous()
@@ -288,7 +295,7 @@ def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
     _build.check(err, "ref_attn_diffusion launch")
     ref_attn_diffusion.launches += 1
     ref_attn_diffusion.shape_launches[B, P, R, H] += 1
-    return out.to(dtype)
+    return out
 
 
 def _lib():
@@ -318,30 +325,50 @@ def diffusion_torch(a: torch.Tensor, w: torch.Tensor,
     return x.permute(0, 2, 3, 1)
 
 
-class _RefAttnDiffusion(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, a, w, b):
-        ctx.save_for_backward(a, w, b)
-        if a.device.type == "cpu":
-            return ref_attn_diffusion_plain(a, w, b)
-        return _launch(a, w, b)
+@torch.library.custom_op("gwdepth::ref_attn_diffusion", mutates_args=())
+def _op(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The op's real implementation: float32 diffused planes."""
+    if a.device.type == "cpu":
+        return ref_attn_diffusion_plain(a.float(), w, b)
+    return _launch(a, w, b)
 
-    @staticmethod
-    def backward(ctx, ct):
-        a, w, b = ctx.saved_tensors
-        with torch.enable_grad():
-            prim = [t.detach().requires_grad_() for t in (a, w, b)]
-            y = diffusion_torch(*prim)
-            grads = torch.autograd.grad(y, prim, ct.float())
-        return tuple(g.to(t.dtype) for g, t in zip(grads, (a, w, b)))
+
+@_op.register_fake
+def _(a, w, b):
+    return a.new_empty(a.shape, dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    ctx.save_for_backward(*inputs)
+
+
+def diffusion_vjp(a, w, b, ct):
+    """The gradients of `diffusion_torch` at (a, w, b) for the cotangent
+    `ct`, recomputed from the inputs, in their dtypes."""
+    with torch.enable_grad():
+        prim = [t.detach().requires_grad_() for t in (a, w, b)]
+        y = diffusion_torch(*prim)
+        grads = torch.autograd.grad(y, prim, ct.float())
+    return tuple(g.to(t.dtype) for g, t in zip(grads, (a, w, b)))
+
+
+def _backward(ctx, ct):
+    return diffusion_vjp(*ctx.saved_tensors, ct)
+
+
+_op.register_autograd(_backward, setup_context=_setup_context)
 
 
 def ref_attn_diffusion(a: torch.Tensor, w: torch.Tensor,
                        b: torch.Tensor) -> torch.Tensor:
-    """a (B, P, R, H), w (3, 3, H, H), b (H,) -> diffused a,
-    differentiable. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
-    return _RefAttnDiffusion.apply(a, w, b)
+    """a (B, P, R, H), w (3, 3, H, H), b (H,) -> diffused a in a's dtype,
+    differentiable, through the custom op. CPU tensors take the plain
+    version; CUDA tensors launch the kernel; others raise (the op's fake
+    implementation would otherwise answer for a meta tensor)."""
+    if a.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"ref_attn_diffusion: no kernel for device "
+                         f"{a.device}")
+    return _op(a, w, b).to(a.dtype)
 
 
 ref_attn_diffusion.launches = 0

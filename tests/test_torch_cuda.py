@@ -464,7 +464,7 @@ def test_k1_function_grads_match_plain_autograd(dev):
 
 def test_cuda_outputs_carry_grad_fn_only_when_inputs_require_grad(dev):
     """A CUDA launch goes through ctypes on raw pointers; the autograd
-    Functions around it keep the graph."""
+    registrations of the custom ops around it keep the graph."""
     x, w, g, b, _ = _k2_inputs(7, 8, 16, dev, H=4, W=9)
     assert port_fc.conv3x3_ln_act(x, w, g, b, act="gelu").grad_fn is None
     w.requires_grad_()

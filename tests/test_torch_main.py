@@ -111,14 +111,15 @@ def test_main_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "4,2"], ["--mesh", "8"], ["--bf16"], ["--pre_norm"]])
+    ["--mesh", "4,2"], ["--mesh", "8"], ["--pre_norm"]])
 def test_main_refuses_what_the_port_lacks(tmp_path, flag):
     with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
         pmain.main(_args(tmp_path, tmp_path / "o", *flag))
 
 
 @pytest.mark.parametrize("flag", ["with_plane_norm_loss", "with_reflection",
-                                  "remat", "coco_path", "frozen_weights"])
+                                  "remat", "coco_path", "frozen_weights",
+                                  "bf16"])
 def test_main_runs_the_training_flags(run, tmp_path, capsys, flag):
     """Each flag that the port once refused runs one epoch (2 steps) and
     its eval: `--with_plane_norm_loss` logs a finite `loss_plane` (at 28
@@ -126,13 +127,15 @@ def test_main_runs_the_training_flags(run, tmp_path, capsys, flag):
     `--with_reflection` only sets the config flag; `--remat` recomputes
     every Swin layer of the dense encoder; `--coco_path` trains on a
     COCO-lines set; `--frozen_weights` starts from the first run's
-    checkpoint."""
+    checkpoint; `--bf16` computes the backbone and DETR's dense layers in
+    bfloat16 and keeps the parameters float32."""
     from test_torch_coco_lines import write_coco_set
 
     extra = {"with_plane_norm_loss": ["--with_plane_norm_loss",
                                       "--num_queries", "28"],
              "with_reflection": ["--with_reflection"],
              "remat": ["--remat"],
+             "bf16": ["--bf16"],
              "frozen_weights": ["--frozen_weights", str(
                  run["out"] / "checkpoints" / "checkpoint.pth")]}.get(flag, [])
     argv = _args(run["root"], tmp_path / "o", "--epochs", "1", *extra)
@@ -155,6 +158,9 @@ def test_main_runs_the_training_flags(run, tmp_path, capsys, flag):
     else:
         assert keys == TRAIN_KEYS
     assert state.model.cfg.with_reflection == (flag == "with_reflection")
+    assert state.model.cfg.dtype == ("bfloat16" if flag == "bf16"
+                                     else "float32")
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
     remat = {layer.remat for layer in state.model.dense_encoder.modules()
              if hasattr(layer, "remat")}
     assert remat == {flag == "remat"}
