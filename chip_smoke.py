@@ -128,6 +128,26 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bf16 step's loss within 0.1 |f32| + 0.05 of the float32
               step's; the bf16 forward card vs CPU at 128x192 (see
               `_bf16_card_vs_cpu`). Then full float32 precision again.
+  18. data parallel  (a) `main.main --mesh -1 --use_pallas` for 2 epochs
+              on phase 7's scenes, in a process of its own under
+              `torch.distributed.run --standalone --nproc_per_node 1`
+              (NCCL, one rank) and alone, both under deterministic
+              algorithms: log.txt and every final parameter bit-equal;
+              per step K1 4, K2 25 and 51 backward (the counts zeroed
+              before main.main and read after, and per timed step); the
+              NCCL, K1 and K2 kernels a profiled step runs, the median of
+              6 steps and the busy time beside phase 7's. (b) two
+              processes on the one card under torchrun over gloo (CUDA
+              tensors), each the data-parallel train step on its image of
+              3 global batches of 2 at 704x1024 (`use_pallas`, dropout 0),
+              against one process's step on both images and a control
+              (that process on images x (1 + 1e-7 noise)); the depth
+              points forced to the one process's; K1 and K2 counted per
+              rank; the first step's losses (1e-5) and gradients before
+              the clip (1e-3 relative L2) held, later steps' losses and
+              the parameters to 3x the control's gaps; peak memory per
+              process. `chip_smoke.py --dp-role main|pair --dp-dir DIR`
+              is how the phase starts those processes.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -164,6 +184,13 @@ from gwdepth_tpu_torch.ops.fused_conv import (conv3x3_ln_act,
 from gwdepth_tpu_torch.ops import window_msa as wm
 from gwdepth_tpu_torch.ops.ref_attn_diffusion import (
     diffusion_torch, ref_attn_diffusion, ref_attn_diffusion_plain)
+
+# Kineto tears CUPTI down after every profiling session and sets it up
+# again at the next; after the CUDA graphs that the timing phases capture,
+# later sessions came back without device events. Keep CUPTI up, as
+# PyTorch does for its own CUDA-graph paths (torch.profiler,
+# TEARDOWN_CUPTI).
+os.environ.setdefault("TEARDOWN_CUPTI", "0")
 
 # H100 SXM data-sheet peaks (dense): float32 on the CUDA cores, bf16 on
 # the tensor cores, HBM3
@@ -1086,32 +1113,42 @@ def phase_train(card: str, tmp: str):
                   "n_val": n_val}
 
 
+@contextlib.contextmanager
+def sampled_points(record: list, forced=None):
+    """Every `certain_sample` result appended to `record` (on the CPU);
+    with `forced` (an earlier run's list, in call order) each call returns
+    that run's points in place of its own."""
+    from gwdepth_tpu_torch.models import dense_encoder
+
+    sample = dense_encoder.certain_sample
+
+    def spy(*args, **kw):
+        out = sample(*args, **kw)
+        record.append(out.detach().cpu())
+        if forced is not None:
+            out = forced[len(record) - 1].to(out.device)
+        return out
+
+    dense_encoder.certain_sample = spy
+    try:
+        yield
+    finally:
+        dense_encoder.certain_sample = sample
+
+
 def _train_grads(cfg, model, batch, dev, images=None, use_points=None):
     """One train step's losses, parameter gradients and sampled depth
     points (every `certain_sample` result, on the CPU) of `model` on `dev`
     (`images` in place of the batch's, on the CPU). With `use_points` (a
     list of earlier results) each `certain_sample` call returns the
     earlier run's points in place of its own (its own still recorded)."""
-    from gwdepth_tpu_torch.models import dense_encoder
     from gwdepth_tpu_torch.parallel import compute_losses
 
-    sample = dense_encoder.certain_sample
     points = []
-
-    def spy(*args, **kw):
-        out = sample(*args, **kw)
-        points.append(out.detach().cpu())
-        if use_points is not None:
-            out = use_points[len(points) - 1].to(out.device)
-        return out
-
     b = batch.to(dev)
     imgs = b.images if images is None else images.to(dev)
-    dense_encoder.certain_sample = spy
-    try:
+    with sampled_points(points, use_points):
         _, logs = compute_losses(cfg, model(imgs, b.valid), b)
-    finally:
-        dense_encoder.certain_sample = sample
     logs["loss"].backward()
     return ({k: float(v.detach()) for k, v in logs.items()},
             {n: p.grad.detach().cpu() for n, p in model.named_parameters()
@@ -2850,9 +2887,416 @@ def phase_bf16(card: str, train: dict) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# data parallelism (phase 18)
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3                  # phase 18b's train steps
+DP_TIMED_STEPS = 6            # phase 18a's timed steps, after 2 warm-ups
+# 18b: two ranks (one image each) against one process (both images),
+# from equal weights on equal images and depth points: the first step's
+# losses to DP_LOSS_REL_TOL and its gradients (the sum over ranks before
+# the clip, against one process's) to phase 8's float32 limit. Adam moves
+# each element by about lr x the sign of its gradient, so an element
+# whose gradient is float noise may move up to 2 lr a step the other way
+# and the two runs part slowly; later steps' losses and the parameters
+# are held to CONTROL_MARGIN x a control's gaps (that one process again
+# on images x (1 + 1e-7 noise)), and every element to 2 lr a step. On an
+# H100 80GB HBM3 at 700 W the first step read 4.9e-7 and 7.3e-5, the
+# third 2.2e-5 against the control's 2.0e-5, and 0.47 % of the elements
+# were past 1e-2 lr against the control's 1.5 %.
+DP_LOSS_REL_TOL = 1e-5
+_NCCL_NAMES = ("nccl",)
+
+
+def _dp_spec(d: str) -> dict:
+    with open(os.path.join(d, "spec.json")) as f:
+        return json.load(f)
+
+
+def _dp_write(d: str, name: str, rec: dict) -> None:
+    with open(os.path.join(d, name), "w") as f:
+        json.dump(rec, f)
+
+
+def _device_kernels(fn) -> list:
+    """(name, device us) of every CUDA kernel that one call of `fn` runs,
+    as torch.profiler sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.name, e.time_range.end - e.time_range.start)
+            for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
+def dp_main_role(d: str) -> None:
+    """Phase 18a in its own process (under torchrun, or not): `main.main`
+    with the spec's flags under deterministic algorithms, the launch
+    counts over it, its final parameters (rank 0); then, with the default
+    algorithms, DP_TIMED_STEPS timed steps of the trained state with the
+    counts per step, and one profiled step (NCCL, K1 and K2 kernels, busy
+    time)."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import make_train_step
+    from gwdepth_tpu_torch.parallel.mesh import launched
+
+    spec = _dp_spec(d)
+    probe()
+    torch.cuda.synchronize()
+    _reset_counts()
+    with deterministic_algorithms():
+        state = train_main.main(spec["args"])
+    torch.cuda.synchronize()
+    counts = _counts()
+    mesh, cfg = state.mesh, state.model.cfg
+    if mesh.is_main:
+        torch.save({k: v.detach().cpu()
+                    for k, v in state.model.state_dict().items()},
+                   os.path.join(d, "params.pt"))
+    loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                    seed=SEED, num_workers=4, rank=mesh.rank,
+                    world=mesh.world)
+    batches = [b.to("cuda") for b, _ in loader.epoch(5)]
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + mesh.rank)
+    times, per_step = [], []
+    for i in range(2 + DP_TIMED_STEPS):
+        torch.cuda.synchronize()
+        _reset_counts()
+        t0 = time.perf_counter()
+        state, vec = step(state, batches[i % len(batches)], gen)
+        torch.cuda.synchronize()
+        if i >= 2:
+            times.append((time.perf_counter() - t0) * 1e3)
+        per_step.append({k: v for k, v in _counts().items()
+                         if k != "matcher_calls"})
+        assert torch.isfinite(vec).all(), "non-finite train loss"
+    spans = _device_kernels(lambda: step(state, batches[0], gen))
+
+    def count(keys):
+        return sum(any(k in n.lower() for k in keys) for n, _ in spans)
+
+    _dp_write(d, f"result{mesh.rank}.json", {
+        "launched": launched(), "world": mesh.world,
+        "distributed": mesh.distributed,
+        "backend": (torch.distributed.get_backend()
+                    if mesh.distributed else None),
+        "counts": counts, "per_step": per_step, "step_ms": float(
+            np.median(times)), "step_times": times,
+        "kernels": len(spans), "busy_ms": sum(t for _, t in spans) / 1e3,
+        "nccl_kernels": count(_NCCL_NAMES),
+        "nccl_names": sorted({n[:80] for n, _ in spans
+                              if "nccl" in n.lower()}),
+        "k1_kernels": count(_K1_NAMES), "k2_kernels": count(_K2_NAMES),
+        "peak_bytes": torch.cuda.max_memory_allocated()})
+    if mesh.distributed:
+        torch.distributed.destroy_process_group()
+
+
+def _dp_pair_setup(spec: dict, rank: int = 0, world: int = 1):
+    """Phase 18b's config (phase 7's flags, dropout 0), seeded model on
+    the card and this rank's part of the first DP_STEPS global batches."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+
+    cfg = train_main.config_from_args(train_main.build_argparser(
+        ).parse_args(spec["args"])).replace(dropout=0.0)
+    # main.py's precision: float32 without TF32 (cuDNN allows TF32 by
+    # default, which a rank's process would otherwise take)
+    cfg.set_matmul_precision()
+    loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                    seed=SEED, num_workers=4, rank=rank, world=world)
+    batches = [b for _, (b, _) in zip(range(DP_STEPS), loader.epoch(0))]
+    model = build_glassrgbd(cfg, SEED, device="cpu").to("cuda")
+    return cfg, model, batches
+
+
+@contextlib.contextmanager
+def first_clip_grads(record: dict):
+    """The gradients that the first `clip_grad_norm_` call sees (after
+    the reduction over ranks, before the clip), into `record` by id."""
+    clip = torch.nn.utils.clip_grad_norm_
+
+    def spy(params, *args, **kw):
+        params = list(params)
+        if not record:
+            record.update({id(p): p.grad.detach().cpu() for p in params})
+        return clip(params, *args, **kw)
+
+    torch.nn.utils.clip_grad_norm_ = spy
+    try:
+        yield
+    finally:
+        torch.nn.utils.clip_grad_norm_ = clip
+
+
+def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
+    """DP_STEPS train steps under deterministic algorithms, with the
+    launch counts of each, the sampled points (forced to `forced`'s, per
+    step, when given), the log vectors, the first step's gradients
+    before the clip and the final parameters."""
+    from gwdepth_tpu_torch.parallel import (create_train_state,
+                                            make_train_step)
+
+    state = create_train_state(cfg, model, steps_per_epoch=4, mesh=mesh)
+    step = make_train_step(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(
+        SEED + (mesh.rank if mesh else 0))
+    torch.cuda.reset_peak_memory_stats()
+    logs, counts, points, first = [], [], [], {}
+    with deterministic_algorithms(), first_clip_grads(first):
+        for i, batch in enumerate(batches):
+            rec = []
+            torch.cuda.synchronize()
+            _reset_counts()
+            with sampled_points(rec, None if forced is None else forced[i]):
+                state, vec = step(state, batch.to("cuda"), gen)
+            torch.cuda.synchronize()
+            counts.append({k: v for k, v in _counts().items()
+                           if k != "matcher_calls"})
+            logs.append(vec.cpu().tolist())
+            points.append(rec)
+    return {"keys": list(step.log_keys), "logs": logs, "counts": counts,
+            "points": points, "peak_bytes": torch.cuda.max_memory_allocated(),
+            "grads": {n: first[id(p)] for n, p in model.named_parameters()
+                      if id(p) in first},
+            "params": {n: p.detach().cpu()
+                       for n, p in model.named_parameters()}}
+
+
+def dp_pair_role(d: str) -> None:
+    """Phase 18b, one of two ranks on the one card over gloo: the data-
+    parallel train step on this rank's image of each global batch, the
+    depth points forced to the one-process reference's for that image
+    (its own picks recorded); rank 0 saves the final parameters."""
+    from gwdepth_tpu_torch.parallel import make_mesh, setup
+
+    setup("cuda:0", backend="gloo")
+    mesh = make_mesh((-1,))
+    spec = _dp_spec(d)
+    ref = torch.load(os.path.join(d, "reference.pt"), weights_only=False)
+    share = mesh.share(TRAIN_BS)
+    forced = [[t[share] for t in step] for step in ref["points"]]
+    cfg, model, batches = _dp_pair_setup(spec, mesh.rank, mesh.world)
+    run = dp_steps(cfg, model, batches, mesh, forced)
+    moved = [_points_moved(own, f) for own, f in zip(run["points"], forced)]
+    if mesh.is_main:
+        torch.save({k: run[k] for k in ("params", "grads")},
+                   os.path.join(d, "pair_tensors.pt"))
+    _dp_write(d, f"pair{mesh.rank}.json", {
+        "keys": run["keys"], "logs": run["logs"], "counts": run["counts"],
+        "points_moved": moved, "peak_bytes": run["peak_bytes"],
+        "backend": torch.distributed.get_backend(), "world": mesh.world})
+    torch.distributed.destroy_process_group()
+
+
+def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
+    """Run this script's `role` in a subprocess: under torchrun with
+    `nproc` processes, or alone (nproc 0); CUBLAS_WORKSPACE_CONFIG lets
+    cuBLAS run deterministically."""
+    cmd = [os.path.abspath(__file__), "--dp-role", role, "--dp-dir", d]
+    if nproc:
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={nproc}", *cmd]
+    else:
+        cmd = [sys.executable, *cmd]
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8",
+               PYTHONPATH=os.pathsep.join(
+                   [os.path.dirname(os.path.abspath(__file__))]
+                   + [p for p in os.environ.get("PYTHONPATH", "").split(
+                       os.pathsep) if p]))
+    t0 = time.perf_counter()
+    # a session of its own, so that a timeout stops torchrun's workers too
+    proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, 9)
+        out, err = proc.communicate()
+    secs = time.perf_counter() - t0
+    if proc.returncode:
+        log(out[-4000:])
+        log(err[-6000:])
+        raise AssertionError(f"{role} (nproc {nproc}) exited "
+                             f"{proc.returncode} after {secs:.0f} s")
+    return secs
+
+
+def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
+    """Phase 18a: `main.main --mesh -1 --use_pallas` for 2 epochs on phase
+    7's scenes under torchrun (one rank, NCCL) and alone, each in its own
+    process under deterministic algorithms: log.txt and the final
+    parameters bit-equal; launches over each run; per step (K1, K2 and
+    NCCL kernels) and the step median and busy time beside phase 7's."""
+    steps = train["n_train"] // TRAIN_BS
+    want = _expected_counts(2 * steps, 2 * train["n_val"])
+    res, secs = {}, {}
+    for label, nproc in (("torchrun", 1), ("alone", 0)):
+        d = os.path.join(tmp, f"dp-{label}")
+        os.makedirs(d)
+        args = _with_args(train["args"], output_dir=os.path.join(d, "exp")) \
+            + ["--epochs", "2", "--mesh", "-1"]
+        _dp_write(d, "spec.json", {"args": args})
+        secs[label] = _run_role("main", d, nproc)
+        with open(os.path.join(d, "result0.json")) as f:
+            res[label] = json.load(f)
+        res[label]["log"] = [json.loads(ln) for ln in
+                             open(os.path.join(d, "exp", "log.txt"))]
+        res[label]["params"] = torch.load(os.path.join(d, "params.pt"))
+    tr, al = res["torchrun"], res["alone"]
+    assert tr["launched"] and tr["distributed"] and tr["world"] == 1 \
+        and tr["backend"] == "nccl", tr
+    assert not al["launched"] and not al["distributed"], al
+    for r in (tr, al):
+        assert r["counts"] == want, (r["counts"], want)
+        for c in r["per_step"]:
+            assert c == {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                         "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}, c
+    log_equal = tr["log"] == al["log"]
+    unequal = [n for n in al["params"]
+               if not torch.equal(tr["params"][n], al["params"][n])]
+    prof = train["profile"]
+    summary = {
+        "seconds": secs, "launches": tr["counts"],
+        "per_step": tr["per_step"][0],
+        "nccl_kernels_per_step": tr["nccl_kernels"],
+        "nccl_names": tr["nccl_names"],
+        "alone_nccl_kernels_per_step": al["nccl_kernels"],
+        "k1_kernels_per_step": tr["k1_kernels"],
+        "k2_kernels_per_step": tr["k2_kernels"],
+        "step_ms": tr["step_ms"], "alone_step_ms": al["step_ms"],
+        "phase7_step_ms": train["step_ms"],
+        "busy_ms": tr["busy_ms"], "alone_busy_ms": al["busy_ms"],
+        "phase7_busy_ms": prof.get("device_busy_ms"),
+        "peak_bytes": tr["peak_bytes"], "log_bit_equal": log_equal,
+        "params_bit_equal": [len(al["params"]) - len(unequal),
+                             len(al["params"])]}
+    log(f"[dp-nccl] main.main --mesh -1 --use_pallas, 2 epochs, under "
+        f"torchrun (1 rank, NCCL) and alone: {json.dumps(summary)} on "
+        f"{card}")
+    assert log_equal, (tr["log"], al["log"])
+    assert not unequal, unequal[:5]
+    return summary
+
+
+def _loss_gaps(logs, ref) -> np.ndarray:
+    """Per step, the largest |a - b| / max(1, |b|) over the log keys."""
+    a, b = np.asarray(logs), np.asarray(ref)
+    return (np.abs(a - b) / np.maximum(1.0, np.abs(b))).max(axis=1)
+
+
+def _params_far(got, ref, cfg) -> tuple:
+    """(elements past 1e-2 lr, all elements, tensors past Adam's bound of
+    2 lr a step)."""
+    far = total = 0
+    past = []
+    for n, w in ref.items():
+        lr = cfg.lr_backbone if n.startswith("backbone.") else cfg.lr
+        diff = (got[n].double() - w.double()).abs()
+        if float(diff.max()) > 2 * lr * DP_STEPS + 1e-6:
+            past.append(n)
+        far += int((diff > 1e-2 * lr).sum())
+        total += diff.numel()
+    return far, total, past
+
+
+def phase_dp_pair(card: str, train: dict, tmp: str) -> dict:
+    """Phase 18b: two processes on the one card over gloo, each the data-
+    parallel train step on its image of each global batch of 2, for
+    DP_STEPS steps, against one process's step on the 2 images, run here
+    first under the same deterministic algorithms (its depth points are
+    forced on the ranks, whose own picks are reported), and a control:
+    that process again on images x (1 + 1e-7 noise), the same points."""
+    from gwdepth_tpu_torch.data.batch import Batch
+
+    d = os.path.join(tmp, "dp-pair")
+    os.makedirs(d)
+    spec = {"args": train["args"]}
+    _dp_write(d, "spec.json", spec)
+    cfg, model, batches = _dp_pair_setup(spec)
+    ref = dp_steps(cfg, model, batches)
+    gen = torch.Generator().manual_seed(SEED)
+    noisy = [Batch(b.images * (1 + 1e-7 * torch.randn(
+        b.images.shape, generator=gen)), *(getattr(b, f) for f in (
+            "valid", "depth", "seg", "lines", "line_mask"))) for b in batches]
+    model = build_glassrgbd(cfg, SEED, device="cpu").to("cuda")
+    ctl = dp_steps(cfg, model, noisy, forced=ref["points"])
+    del model
+    torch.cuda.empty_cache()
+    torch.save({"points": ref["points"]}, os.path.join(d, "reference.pt"))
+    secs = _run_role("pair", d, nproc=2)
+    pair = []
+    for r in range(2):
+        with open(os.path.join(d, f"pair{r}.json")) as f:
+            pair.append(json.load(f))
+    got = torch.load(os.path.join(d, "pair_tensors.pt"))
+    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    for p in [ref] + pair:
+        assert p["counts"] == [per_step] * DP_STEPS, p["counts"]
+    # what the ranks counted, each step of each rank the same
+    counted = pair[0]["counts"][0]
+    assert all(c == counted for p in pair for c in p["counts"]), pair
+    assert pair[0]["logs"] == pair[1]["logs"] and pair[0]["keys"] == \
+        ref["keys"] and {p["backend"] for p in pair} == {"gloo"}
+    loss = _loss_gaps(pair[0]["logs"], ref["logs"])
+    loss_ctl = _loss_gaps(ctl["logs"], ref["logs"])
+    first = np.abs(np.asarray(pair[0]["logs"][0]) - np.asarray(
+        ref["logs"][0])) / np.maximum(1.0, np.abs(np.asarray(
+            ref["logs"][0])))
+    grads, grads_ctl = (_gap_stats(g, ref["grads"])
+                        for g in (got["grads"], ctl["grads"]))
+    far, total, past = _params_far(got["params"], ref["params"], cfg)
+    far_ctl, _, past_ctl = _params_far(ctl["params"], ref["params"], cfg)
+    summary = {
+        "seconds": secs, "loss_rel_per_step": loss.tolist(),
+        "first_step_worst": ref["keys"][int(first.argmax())],
+        "control_loss_rel_per_step": loss_ctl.tolist(),
+        "first_step_grads": grads, "control_first_step_grads": grads_ctl,
+        "params_far": [far, total], "control_params_far": [far_ctl, total],
+        "past_sign_bound": past[:5] + past_ctl[:5],
+        "points_moved": [p["points_moved"] for p in pair],
+        "peak_bytes": [p["peak_bytes"] for p in pair],
+        "one_process_peak_bytes": ref["peak_bytes"],
+        "launches_per_step_per_rank": counted}
+    log(f"[dp-pair] 2 ranks on one card over gloo, {DP_STEPS} steps, one "
+        f"image each, against one process on both: {json.dumps(summary)} "
+        f"on {card}")
+    assert loss[0] <= DP_LOSS_REL_TOL, summary
+    assert all(g <= max(DP_LOSS_REL_TOL, CONTROL_MARGIN * c)
+               for g, c in zip(loss[1:], loss_ctl[1:])), summary
+    assert grads["max"] <= TRAIN_GRAD_REL_L2_TOL, summary
+    assert not past and not past_ctl, summary
+    assert far <= CONTROL_MARGIN * far_ctl, summary
+    return summary
+
+
+def phase_data_parallel(card: str, train: dict, tmp: str) -> dict:
+    """Phase 18: 18a, then 18b."""
+    t0 = time.perf_counter()
+    out = {"nccl": phase_dp_nccl(card, train, tmp),
+           "pair": phase_dp_pair(card, train, tmp)}
+    log(f"[dp] phase 18 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> None:
-    argparse.ArgumentParser(description=__doc__.splitlines()[0]).parse_args(
-        argv)
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--dp-role", choices=("main", "pair"),
+                   help="phase 18's own processes (started by the smoke)")
+    p.add_argument("--dp-dir")
+    args = p.parse_args(argv)
+    if args.dp_role:
+        {"main": dp_main_role, "pair": dp_pair_role}[args.dp_role](
+            args.dp_dir)
+        return
     t_start = time.perf_counter()
     smi = probe()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
@@ -2878,6 +3322,7 @@ def main(argv=None) -> None:
         coco = phase_coco_lines(train)
         exported = phase_export(card, tmp)
         bf16 = phase_bf16(card, train)
+        dp = phase_data_parallel(card, train, tmp)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
 
@@ -3059,6 +3504,10 @@ def main(argv=None) -> None:
         entry["exported_launches"] = exported["launches"][key]
         entry["bf16_train_run_launches"] = bf16["launches"][key]
         entry["bf16_train_launches_per_step"] = bf16["per_step"][key]
+        entry["dp_nccl_run_launches"] = dp["nccl"]["launches"][key]
+        entry["dp_nccl_launches_per_step"] = dp["nccl"]["per_step"][key]
+        entry["dp_pair_launches_per_step_per_rank"] = \
+            dp["pair"]["launches_per_step_per_rank"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -3115,7 +3564,10 @@ def main(argv=None) -> None:
         "process, over phase 5's 3 images (phase 16); "
         "bf16_train_run_launches / _per_step: main.main --bf16 "
         "--use_pallas, 4 steps and 2 eval forwards / one timed step "
-        "(phase 17).")
+        "(phase 17). dp_nccl_run_launches / _per_step: main.main --mesh -1 "
+        "under torchrun over NCCL, 8 steps and 4 eval forwards / one "
+        "timed step; dp_pair_launches_per_step_per_rank: a rank's step of "
+        "the two gloo ranks on the card (phase 18).")
     dprof = depth_only["profile"]
     log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
         f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "

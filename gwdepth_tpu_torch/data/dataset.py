@@ -14,7 +14,9 @@ The port's copy of `gwdepth_tpu.data.dataset`, PIL decode only:
 
 Samples are padded bottom-right onto the configured canvas with a validity
 mask, GT lines onto `max_lines` slots with a line mask. `Loader` decodes
-with a thread pool and a prefetch queue ahead of the consumer.
+with a thread pool and a prefetch queue ahead of the consumer; over W
+data-parallel ranks each rank decodes its contiguous part of every global
+batch.
 """
 
 from __future__ import annotations
@@ -205,12 +207,26 @@ def make_batch(samples: Sequence[Dict[str, np.ndarray]]) -> Batch:
 class Loader:
     """Epoch iterator: a decode thread pool behind a prefetch queue. PIL
     and zlib release the GIL while decoding, so threads overlap the host
-    work with the device steps."""
+    work with the device steps.
 
-    def __init__(self, dataset: GlassRGBDDataset, batch_size: int,
+    `batch_size` is the global batch. Rank `rank` of `world` yields the
+    rank-th contiguous part of each global batch (`batch_size / world`
+    images), so the W ranks together see exactly one process's batches,
+    as the JAX step's batch is sharded contiguously over `data`; every
+    rank shuffles with the same seed and has `len(self)` global batches.
+    Each sample's augmentation draws from a seed of (seed, epoch, index),
+    so a sample is augmented alike whichever rank decodes it."""
+
+    def __init__(self, dataset, batch_size: int,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = True,
                  prefetch: int = 2, num_workers: int = 4,
-                 pad_to_batch: bool = False):
+                 pad_to_batch: bool = False, rank: int = 0, world: int = 1):
+        if batch_size % world:
+            raise ValueError(f"batch {batch_size} does not split over "
+                             f"{world} ranks")
+        if world > 1 and not (drop_last or pad_to_batch):
+            raise ValueError("a short last batch splits over ranks only "
+                             "with pad_to_batch")
         self.ds = dataset
         self.bs = batch_size
         self.shuffle = shuffle
@@ -221,17 +237,34 @@ class Loader:
         # a short final batch is padded with all-invalid images, which
         # every eval accumulator treats as "not an image"
         self.pad_to_batch = pad_to_batch
+        self.rank = rank
+        self.world = world
 
     def __len__(self) -> int:
         n = len(self.ds)
         return n // self.bs if self.drop_last else -(-n // self.bs)
 
+    def _share(self, bi: int, order: np.ndarray) -> List[int]:
+        """This rank's dataset indices of global batch `bi`, -1 where the
+        padded tail has no image."""
+        idxs = list(order[bi * self.bs:(bi + 1) * self.bs])
+        if self.pad_to_batch:
+            idxs += [-1] * (self.bs - len(idxs))
+        lb = len(idxs) // self.world
+        return idxs[self.rank * lb:(self.rank + 1) * lb]
+
     def epoch(self, epoch: int = 0) -> Iterator[Tuple[Batch, List[str]]]:
-        order = np.arange(len(self.ds))
+        n = len(self.ds)
+        order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        seeds = np.random.default_rng((self.seed, epoch)).integers(
+            0, 2 ** 32, size=n)
         nb = len(self)
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+
+        def load(i):
+            return self.ds.__getitem__(int(i), seed=int(seeds[i]))
 
         def worker():
             with ThreadPoolExecutor(max(1, self.num_workers)) as pool:
@@ -239,18 +272,24 @@ class Loader:
                 bi = 0
                 while bi < nb or pending:
                     while bi < nb and len(pending) <= self.prefetch:
-                        idxs = order[bi * self.bs:(bi + 1) * self.bs]
-                        pending.append([pool.submit(self.ds.__getitem__,
-                                                    int(i)) for i in idxs])
+                        share = self._share(bi, order)
+                        real = [i for i in share if i >= 0]
+                        if share and not real:
+                            # only padding here: the batch's first image
+                            # gives the pad's shapes
+                            real = [order[bi * self.bs]]
+                        pending.append((sum(i >= 0 for i in share), len(share),
+                                        [pool.submit(load, i) for i in real]))
                         bi += 1
-                    samples = [f.result() for f in pending.popleft()]
+                    n_real, n_share, futs = pending.popleft()
+                    samples = [f.result() for f in futs][:n_real]
                     names = [s["name"] for s in samples]
-                    if self.pad_to_batch and len(samples) < self.bs:
+                    if len(samples) < n_share:
                         pad = {k: np.zeros_like(v) for k, v in
-                               samples[0].items()
+                               futs[0].result().items()
                                if isinstance(v, np.ndarray)}
                         pad["name"] = ""
-                        samples += [pad] * (self.bs - len(samples))
+                        samples += [pad] * (n_share - len(samples))
                     q.put((make_batch(samples), names))
             q.put(None)
 

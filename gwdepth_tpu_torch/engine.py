@@ -8,6 +8,12 @@ original's per-step check does (here within one print window). Eval sums
 its accumulators on the device and moves them to the host after the
 loop, with the line outputs that the benchmark dumps and line overlays
 need; the dense prediction grids cost one more copy per batch.
+
+Over data-parallel ranks (`mesh`) each rank steps on its part of every
+global batch; the logs are already global. Eval sums its accumulators
+over the ranks, gathers the line dumps to rank 0 in dataset order, and
+each rank writes its own images' dense and line pictures; only rank 0
+writes the training-input overlay.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.evaluation.line_metrics import softmax
+from gwdepth_tpu_torch.parallel.mesh import DataMesh, make_mesh
 from gwdepth_tpu_torch.parallel.train_step import (summarize_depth,
                                                    summarize_seg)
 from gwdepth_tpu_torch.utils.logging import MetricLogger
@@ -55,7 +62,7 @@ def train_one_epoch(state, train_step: Callable, loader, epoch: int,
                                           f"Epoch: [{epoch}]",
                                           total=len(loader),
                                           before_print=flush):
-        if first and vis_dir is not None:
+        if first and vis_dir is not None and logger.is_main:
             # the loader's batch is still on the host
             show_labels(batch.images[0].numpy(),
                         batch.lines[0][batch.line_mask[0]].numpy(),
@@ -65,13 +72,17 @@ def train_one_epoch(state, train_step: Callable, loader, epoch: int,
         state, log_vec = train_step(state, batch.to(device), generator)
         pending.append(log_vec)
     flush()
+    # no `synchronize_between_processes`: every rank's log vectors are
+    # already the global ones, so a sum over ranks would leave each
+    # global_avg as it is
     return state, {k: m.global_avg for k, m in logger.meters.items()}
 
 
 def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
              device, collect_lines: bool = False,
              save_dense_dir: Optional[str] = None,
-             save_line_dir: Optional[str] = None) -> Dict[str, object]:
+             save_line_dir: Optional[str] = None,
+             mesh: Optional[DataMesh] = None) -> Dict[str, object]:
     """The eval dict of a model with the dense branch: 9 depth metrics,
     seg IoUs and accuracies, and the eval line losses averaged over real
     images. A line-only model's is empty, as the JAX package's: its
@@ -84,11 +95,16 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
     one device-to-host copy per batch. `save_line_dir` writes each
     image's predicted (class-0 probability above 0.7) beside its GT
     lines (`vis_pred_lines`). The sums and the line outputs
-    stay on the device until the loop ends."""
+    stay on the device until the loop ends.
+
+    Over `mesh` (the loader yields this rank's part of each batch) the
+    sums are the global ones on every rank; `line_dumps`, in dataset
+    order, are on rank 0 only (empty elsewhere)."""
+    mesh = make_mesh() if mesh is None else mesh
     acc = None
-    names, line_out, gts = [], [], []
+    names, line_out, gts, order = [], [], [], []
     keep_lines = cfg.with_line and (collect_lines or save_line_dir)
-    for batch, batch_names in loader.epoch(0):
+    for bi, (batch, batch_names) in enumerate(loader.epoch(0)):
         res = eval_step(model, batch.to(device))
         if cfg.with_dense:
             cur = {k: res[k] for k in ("depth_sums", "confusion",
@@ -107,11 +123,18 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
         if keep_lines:
             n = len(batch_names)      # the rows past it pad the last batch
             names += batch_names
+            order += [(bi, mesh.rank, j) for j in range(n)]
             line_out.append([res[k][:n] for k in ("pred_logits",
                                                   "pred_lines", "extent")])
             if save_line_dir is not None:
                 gts += [(batch.lines[i].numpy(), batch.line_mask[i].numpy(),
                          batch.images[i].numpy()) for i in range(n)]
+    if acc:
+        # every accumulator summed over ranks in one all_reduce
+        keys = sorted(acc)
+        flat = mesh.sum_(torch.cat([acc[k].reshape(-1) for k in keys]))
+        acc = {k: piece.view_as(acc[k]) for k, piece in zip(
+            keys, flat.split([acc[k].numel() for k in keys]))}
     acc = {k: v.cpu().numpy().astype(np.float64)
            for k, v in (acc or {}).items()}
     line_dumps = []
@@ -130,6 +153,14 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
             gt_px = gt_lines[gt_mask][:, :4] * np.array([w, h, w, h])
             vis_pred_lines(pred_px, scores, gt_px, img,
                            os.path.join(save_line_dir, f"{d['name']}.png"))
+
+    if collect_lines:
+        # every rank's dumps, on rank 0, in dataset order: global batch,
+        # then rank, then position in the rank's part
+        parts = mesh.gather(list(zip(order, line_dumps)))
+        line_dumps = [d for _, d in sorted(
+            (p for part in parts for p in part), key=lambda kv: kv[0])] \
+            if parts is not None else []
 
     stats: Dict[str, object] = {}
     if cfg.with_dense:

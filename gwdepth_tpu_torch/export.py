@@ -129,7 +129,10 @@ def load_weights(model: torch.nn.Module, resume: str,
         if os.path.isdir(path):
             path = CheckpointManager(path).latest()
             if path is None:
-                raise SystemExit(f"--resume {resume}: no checkpoint.pth")
+                raise SystemExit(
+                    f"--resume {resume}: no checkpoint.pth (the port reads "
+                    "its own torch.save checkpoints, not the JAX package's "
+                    "orbax directories)")
         restore_file(SimpleNamespace(model=model), path, params_only=True)
         return path
     return None

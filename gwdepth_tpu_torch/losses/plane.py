@@ -9,7 +9,8 @@ are multiplicative weights, so the loss runs on a fixed `num_ref`
 triangles for any batch.
 
 The training step logs this loss and never adds it to the optimized
-total, as the original does; it computes it without a graph.
+total, as the original does; it computes it without a graph. Its mean
+over images is the global batch's (`reduce`, as in `criterion.py`).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from gwdepth_tpu_torch.losses.criterion import Reducer, identity
 
 SOBEL_KX = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 SOBEL_KY = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -64,7 +67,8 @@ def top_ids(x: torch.Tensor, k: int) -> torch.Tensor:
 def plane_norm_loss(depth_pred: torch.Tensor, pred_lines: torch.Tensor,
                     pred_logits: torch.Tensor, valid: torch.Tensor,
                     num_ref: int = 28, score_thresh: float = 0.6,
-                    min_area: int = 100) -> torch.Tensor:
+                    min_area: int = 100, reduce: Reducer = identity
+                    ) -> torch.Tensor:
     """depth_pred (B, H, W); pred_lines (B, Q, 6) normalized [x1 y1 x2 y2
     cx cy]; pred_logits (B, Q, 2); valid (B, H, W) bool -> scalar."""
     B, H, W = depth_pred.shape
@@ -97,4 +101,6 @@ def plane_norm_loss(depth_pred: torch.Tensor, pred_lines: torch.Tensor,
     var = masked_var(-dx) + masked_var(-dy)
     n = gate.sum(dim=1).float().clamp(min=1.0)
     per_image = (var * gate).sum(dim=1) / n
-    return per_image.mean()
+    s = reduce(torch.stack([per_image.sum(), torch.full(
+        (), float(B), device=per_image.device)]))
+    return s[0] / s[1]

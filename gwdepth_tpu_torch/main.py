@@ -1,4 +1,4 @@
-"""Training / evaluation CLI of the port, on one card.
+"""Training / evaluation CLI of the port, on one card or data-parallel.
 
 The flags and defaults of `gwdepth_tpu.main`, plus `--device` (cuda by
 default; the CUDA kernels run there, CPU tensors take their plain
@@ -11,6 +11,17 @@ versions). It writes the same `log.txt` JSON lines and
       --gt_line_path ... --filenames_file_train ... --filenames_file_eval ... \\
       --with_line --with_dense --with_center --num_queries 100
 
+Data parallel over W ranks: launch it with torchrun and `--mesh -1` (or
+`--mesh W`), e.g. `torchrun --nproc_per_node 8 -m gwdepth_tpu_torch.main
+--mesh -1 ...`. Each rank runs on `cuda:LOCAL_RANK` over NCCL (gloo with
+`--device cpu`) and steps on its contiguous part of every global batch:
+`--batch_size` and `--eval_batch_size` are the global batch, as the JAX
+CLI shards them over `data`, and W must divide them. The losses, the
+gradients and the eval metrics are those of the global batch
+(`parallel/mesh.py`); rank 0 writes `log.txt`, `eval_results.txt`, the
+line dumps and the checkpoints, and the dropout generator of rank r
+starts from `seed + r`.
+
 Eval outputs, as the JAX CLI writes them under `<output_dir>`:
 `--dump_gt_lines` the GT line npz files (`lines_npz/eval`), and with
 `--eval`: `--benchmark` one prediction npz per image
@@ -20,8 +31,9 @@ and `aph_score`), `--save_dense` the depth/seg grids (`dense_pred`),
 writes the first batch's label overlay per epoch to `input_log`.
 
 Every flag of the JAX CLI reaches the run, but two, which stop it
-with an error instead of being ignored (see `_refuse`): `--mesh` other
-than one device, and `--pre_norm` (which no JAX model reads either).
+with an error instead of being ignored (see `_refuse`): a two-axis
+`--mesh` (tensor parallelism, `partition.py`, is not ported), and
+`--pre_norm` (which no JAX model reads either).
 `--bf16` runs the backbone and the DETR's dense layers in bfloat16, as
 the JAX CLI's (`cfg.dtype`; the parameters, the losses and AdamW stay
 float32), and on the card lets cuBLAS and cuDNN round the float32
@@ -106,7 +118,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--mesh", type=str, default="-1",
-                   help="'-1' or '1': the port trains on one device")
+                   help="'-1' or the world size: data parallel over the "
+                        "torchrun ranks (a 'data,model' mesh is not "
+                        "ported)")
     p.add_argument("--train_h", type=int, default=cfg.train_hw[0])
     p.add_argument("--train_w", type=int, default=cfg.train_hw[1])
     p.add_argument("--eval_h", type=int, default=cfg.eval_hw[0])
@@ -163,13 +177,29 @@ def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
 
 
 def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
-    """Stop on a flag the port does not carry yet."""
+    """Stop on a flag the port does not carry yet, and on a mesh or batch
+    that the torchrun world does not fit."""
+    from gwdepth_tpu_torch.parallel.mesh import env_world_size
+
     unsupported = ["--pre_norm"] if args.pre_norm else []
-    if cfg.mesh_shape not in ((-1,), (1,)):
-        unsupported.append(f"--mesh {args.mesh}")
+    if len(cfg.mesh_shape) > 1:
+        unsupported.append(f"--mesh {args.mesh} (tensor parallelism, "
+                           "partition.py)")
     if unsupported:
         raise SystemExit(f"{', '.join(unsupported)}: not supported by the "
                          "PyTorch port yet")
+    world = env_world_size()
+    if cfg.mesh_shape[0] not in (-1, world):
+        raise SystemExit(f"--mesh {args.mesh}: the data mesh spans the "
+                         f"torchrun world, {world} rank(s)")
+    for flag, n in (("--batch_size", cfg.batch_size),
+                    ("--eval_batch_size", args.eval_batch_size)):
+        if n % world:
+            raise SystemExit(f"{flag} {n} must be a multiple of the "
+                             f"{world} ranks")
+    if (cfg.batch_size // world) % max(cfg.grad_accum, 1):
+        raise SystemExit(f"--grad_accum {cfg.grad_accum} must divide each "
+                         f"rank's batch, {cfg.batch_size // world}")
 
 
 def local_checkpoint(path: str, flag: str) -> str:
@@ -235,7 +265,8 @@ def main(argv=None):
     from gwdepth_tpu_torch.evaluation import dump_gt_lines
     from gwdepth_tpu_torch.models import build_glassrgbd
     from gwdepth_tpu_torch.parallel import (create_train_state,
-                                            make_eval_step, make_train_step)
+                                            make_eval_step, make_mesh,
+                                            make_train_step, setup)
     from gwdepth_tpu_torch.predict import load_original_checkpoint
     from gwdepth_tpu_torch.utils.checkpoint import (CheckpointManager,
                                                     restore_file)
@@ -250,16 +281,20 @@ def main(argv=None):
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but CUDA is not available")
-    device = torch.device(args.device)
+    device = setup(args.device)
+    mesh = make_mesh(cfg.mesh_shape, cfg.mesh_axes)
+    say = print if mesh.is_main else (lambda *a, **k: None)
     cfg.set_matmul_precision()
     out_dir = cfg.output_dir or "exp/default"
     os.makedirs(out_dir, exist_ok=True)
-    print("git:", git_sha_banner())
+    say("git:", git_sha_banner())
 
+    # the weights, the shuffle and the augmentation from `seed` on every
+    # rank; only the dropout masks differ by rank
     seed = cfg.seed
     np.random.seed(seed)
     torch.manual_seed(seed)
-    generator = torch.Generator(device=device).manual_seed(seed)
+    generator = torch.Generator(device=device).manual_seed(seed + mesh.rank)
 
     model = build_glassrgbd(cfg, seed, device="cpu")
     assert not (args.resume and args.frozen_weights), \
@@ -268,31 +303,34 @@ def main(argv=None):
         n = load_original_checkpoint(
             model, local_checkpoint(args.torch_init, "--torch_init"),
             warm_start=True)
-        print(f"warm start from {args.torch_init}: {n} tensors loaded")
+        say(f"warm start from {args.torch_init}: {n} tensors loaded")
     if args.frozen_weights:
         load_frozen_weights(model, local_checkpoint(args.frozen_weights,
                                                     "--frozen_weights"))
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    print(f"model: {n_params / 1e6:.1f}M params, device: {device}")
+    say(f"model: {n_params / 1e6:.1f}M params, device: {device}, data "
+        f"mesh: {mesh.world} rank(s)")
 
     eval_ds = build_dataset("val")
     eval_loader = Loader(eval_ds, batch_size=args.eval_batch_size,
                          shuffle=False, drop_last=False,
                          pad_to_batch=args.eval_batch_size > 1,
-                         num_workers=args.num_workers)
+                         num_workers=args.num_workers, rank=mesh.rank,
+                         world=mesh.world)
     eval_step = make_eval_step(cfg, return_dense=args.save_dense)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
 
     if args.dump_gt_lines:
         gt_dir = os.path.join(out_dir, "lines_npz", "eval")
-        n = dump_gt_lines(eval_ds, gt_dir)
-        print(f"GT line npz dumps ({n} images) -> {gt_dir}")
+        n = dump_gt_lines(eval_ds, gt_dir) if mesh.is_main else len(eval_ds)
+        mesh.barrier()
+        say(f"GT line npz dumps ({n} images) -> {gt_dir}")
         if not args.eval:
             return {"gt_lines_dumped": n}
 
     if args.eval:
-        state = create_train_state(cfg, model)
+        state = create_train_state(cfg, model, mesh=mesh)
         CheckpointManager(ckpt_dir).restore(state)
         stats = evaluate(
             cfg, model, eval_step, eval_loader, device,
@@ -300,22 +338,27 @@ def main(argv=None):
             save_dense_dir=(os.path.join(out_dir, "dense_pred")
                             if args.save_dense else None),
             save_line_dir=(os.path.join(out_dir, "line_pred")
-                           if args.save_line else None))
-        if args.benchmark and cfg.with_line:
-            bench_dir = os.path.join(out_dir, "benchmark", "benchmark_val")
-            dump_line_predictions(cfg, stats.pop("line_dumps", []),
-                                  bench_dir)
-            print(f"benchmark npz dumps -> {bench_dir}")
-        print(format_eval_line(0, stats))
-        with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
-            f.write(format_eval_line(0, stats) + "\n")
+                           if args.save_line else None), mesh=mesh)
+        line_dumps = stats.pop("line_dumps", [])
+        if mesh.is_main:
+            if args.benchmark and cfg.with_line:
+                bench_dir = os.path.join(out_dir, "benchmark",
+                                         "benchmark_val")
+                dump_line_predictions(cfg, line_dumps, bench_dir)
+                print(f"benchmark npz dumps -> {bench_dir}")
+            print(format_eval_line(0, stats))
+            with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
+                f.write(format_eval_line(0, stats) + "\n")
+        mesh.barrier()
         return stats
 
     train_loader = Loader(build_dataset("train"),
                           batch_size=cfg.batch_size, shuffle=True, seed=seed,
-                          num_workers=args.num_workers)
+                          num_workers=args.num_workers, rank=mesh.rank,
+                          world=mesh.world)
     state = create_train_state(cfg, model,
-                               steps_per_epoch=max(len(train_loader), 1))
+                               steps_per_epoch=max(len(train_loader), 1),
+                               mesh=mesh)
     train_step = make_train_step(cfg)
     ckpt = CheckpointManager(ckpt_dir, save_freq_epochs=args.save_freq)
     # --resume: a .pth file (this port's, or the original code's weights),
@@ -330,9 +373,9 @@ def main(argv=None):
             rdir = args.resume if os.path.isdir(args.resume) else ckpt_dir
             start_epoch = CheckpointManager(rdir).restore(
                 state, params_only=args.no_opt)
-        print(f"resumed from {args.resume}: start epoch {start_epoch}")
+        say(f"resumed from {args.resume}: start epoch {start_epoch}")
 
-    print("Start training")
+    say("Start training")
     t0 = time.time()
     for epoch in range(start_epoch, cfg.epochs):
         state, train_stats = train_one_epoch(
@@ -343,15 +386,23 @@ def main(argv=None):
         log = {"epoch": epoch,
                **{f"train_{k}": v for k, v in train_stats.items()}}
         if (epoch + 1) % args.eval_freq == 0:
-            stats = evaluate(cfg, model, eval_step, eval_loader, device)
+            stats = evaluate(cfg, model, eval_step, eval_loader, device,
+                             mesh=mesh)
             log.update({f"test_{k}": v for k, v in stats.items()})
-            with open(os.path.join(out_dir, "eval_results.txt"), "a") as f:
-                f.write(format_eval_line(epoch, stats) + "\n")
-        with open(os.path.join(out_dir, "log.txt"), "a") as f:
-            f.write(json.dumps(log) + "\n")
-    print(f"Training time {time.time() - t0:.0f}s")
+            if mesh.is_main:
+                with open(os.path.join(out_dir, "eval_results.txt"),
+                          "a") as f:
+                    f.write(format_eval_line(epoch, stats) + "\n")
+        if mesh.is_main:
+            with open(os.path.join(out_dir, "log.txt"), "a") as f:
+                f.write(json.dumps(log) + "\n")
+    mesh.barrier()
+    say(f"Training time {time.time() - t0:.0f}s")
     return state
 
 
 if __name__ == "__main__":
+    from gwdepth_tpu_torch.parallel.mesh import teardown
+
     main()
+    teardown()

@@ -1,5 +1,7 @@
-"""Train state, train and eval steps (one device)."""
+"""Train state, train and eval steps, and the data mesh they run on."""
 
+from gwdepth_tpu_torch.parallel.mesh import (  # noqa: F401
+    DataMesh, make_mesh, setup)
 from gwdepth_tpu_torch.parallel.train_state import (  # noqa: F401
     TrainState, create_train_state, param_group_label, param_groups)
 from gwdepth_tpu_torch.parallel.train_step import (  # noqa: F401

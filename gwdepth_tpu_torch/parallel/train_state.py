@@ -13,17 +13,24 @@ The port of `gwdepth_tpu/parallel/train_state.py`:
 - `clip_grad_norm_(trainable, clip_max_norm)`: the factor
   max_norm / (norm + 1e-6) clamped to 1, over the trained parameters
   only (`clip_like_torch`).
+
+Data parallel (a `DataMesh` of W ranks): `create_train_state` broadcasts
+rank 0's parameters and buffers, so every rank starts from the same
+state, and `apply_gradients` sums the gradients over ranks (one
+`all_reduce` a bucket) before it clips, so the clip sees the global
+gradient and every rank takes the same step.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
 
 from gwdepth_tpu_torch.config import GWDepthConfig
+from gwdepth_tpu_torch.parallel.mesh import DataMesh, make_mesh
 
 
 def param_group_label(name: str, param: nn.Parameter) -> str:
@@ -59,6 +66,7 @@ class TrainState:
     optimizer: torch.optim.Optimizer
     scheduler: torch.optim.lr_scheduler.LambdaLR
     max_norm: float
+    mesh: DataMesh
     step: int = 0
 
     @property
@@ -66,13 +74,15 @@ class TrainState:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
 
     def apply_gradients(self) -> None:
-        """Clip, one AdamW step, advance the schedule, clear the grads. A
-        trained parameter the loss did not reach takes a zero gradient,
-        so Adam's moments and the weight decay still move, as in optax."""
+        """Sum the grads over ranks, clip, one AdamW step, advance the
+        schedule, clear the grads. A trained parameter the loss did not
+        reach takes a zero gradient, so Adam's moments and the weight
+        decay still move, as in optax."""
         params = self.trainable
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.mesh.all_reduce_grads(params)
         torch.nn.utils.clip_grad_norm_(params, self.max_norm)
         self.optimizer.step()
         self.scheduler.step()
@@ -81,10 +91,16 @@ class TrainState:
 
 
 def create_train_state(cfg: GWDepthConfig, model: nn.Module,
-                       steps_per_epoch: int = 1000) -> TrainState:
+                       steps_per_epoch: int = 1000,
+                       mesh: Optional[DataMesh] = None) -> TrainState:
+    """The train state of `model` on `mesh` (default: this process's,
+    `make_mesh()`); over several ranks rank 0's parameters and buffers
+    overwrite every other rank's first."""
+    mesh = make_mesh() if mesh is None else mesh
+    mesh.broadcast_([*model.parameters(), *model.buffers()])
     opt = torch.optim.AdamW(param_groups(model, cfg), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: lr_factor(step, steps_per_epoch, cfg.lr_drop))
-    return TrainState(model, opt, sched, cfg.clip_max_norm)
+    return TrainState(model, opt, sched, cfg.clip_max_norm, mesh)

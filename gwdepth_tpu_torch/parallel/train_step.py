@@ -13,9 +13,18 @@ logs it and does not optimize it). `grad_accum` A > 1 splits the
 batch strided (image i -> microbatch i % A) and applies the mean of the A
 microbatch gradients once.
 
+Data parallel (the state's `DataMesh` over W ranks): each rank steps on
+its contiguous part of the global batch. Every normaliser of the losses
+is summed over ranks (`compute_losses`' `reduce`), so each rank computes
+the global batch's loss and logs; the parameter gradients are summed
+over ranks before the clip (`TrainState.apply_gradients`). With A > 1
+each rank splits its part strided, which is the global strided split
+when the local batch is a multiple of A (as in the JAX step, where the
+strided microbatches stay spread over the `data` shards).
+
 eval step = forward (eval mode) -> 9 depth error sums + count over the
 GT-valid mask, a 2x2 seg confusion matrix and the per-image line losses,
-as device tensors the caller sums over the split.
+as device tensors the caller sums over the split (and over ranks).
 
 Logs come back as ONE device vector in `log_keys` order (sorted, the
 JAX package's order, so `log.txt` lists the same keys in the same order),
@@ -32,15 +41,19 @@ import torch
 
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.data.batch import Batch
-from gwdepth_tpu_torch.losses import (line_set_criterion,
+from gwdepth_tpu_torch.losses import (identity, line_set_criterion,
                                       multiscale_depth_loss, plane_norm_loss,
                                       seg_ce_loss)
+from gwdepth_tpu_torch.losses.criterion import Reducer
 from gwdepth_tpu_torch.parallel.train_state import TrainState
 
 
-def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
+def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch,
+                   reduce: Reducer = identity
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Total weighted loss and the log dict."""
+    """Total weighted loss and the log dict, every normaliser summed
+    through `reduce` (`DataMesh.all_sum` for the global batch of W
+    ranks)."""
     logs: Dict[str, torch.Tensor] = {}
     total = torch.zeros((), device=batch.images.device)
     if cfg.with_line:
@@ -49,7 +62,7 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
             eos_coef=cfg.eos_coef, set_cost_class=cfg.set_cost_class,
             set_cost_line=cfg.set_cost_line,
             focal=cfg.label_loss_func == "focal_loss",
-            focal_gamma=cfg.focal_gamma)
+            focal_gamma=cfg.focal_gamma, reduce=reduce)
         for k, v in ld.items():
             logs[k] = v
             if k.startswith("loss_ce"):
@@ -62,11 +75,11 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
         preds = [d[:, None] for d in outputs["pred_depth"]]
         loss_depth, per_scale = multiscale_depth_loss(
             preds, batch.depth[:, None], valid[:, None],
-            cfg.depth_loss_weights, cfg.variance_focus)
+            cfg.depth_loss_weights, cfg.variance_focus, reduce=reduce)
         for name, l in zip(("1_16", "1_8", "1_4", "1"), per_scale):
             logs[f"loss_depth_{name}"] = l
-        loss_seg = seg_ce_loss(outputs["pred_seg"], batch.seg, "nhwc") \
-            * cfg.seg_loss_weight
+        loss_seg = seg_ce_loss(outputs["pred_seg"], batch.seg, "nhwc",
+                               reduce) * cfg.seg_loss_weight
         logs["loss_seg"] = loss_seg
         total = total + loss_depth + loss_seg
         if cfg.with_plane_norm_loss and cfg.with_line:
@@ -74,7 +87,8 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
             with torch.no_grad():
                 lp = plane_norm_loss(outputs["pred_depth"][-1],
                                      outputs["pred_lines"],
-                                     outputs["pred_logits"], valid)
+                                     outputs["pred_logits"], valid,
+                                     reduce=reduce)
             logs["loss_plane"] = lp * cfg.plane_norm_loss_coef
     logs["loss"] = total
     return total, logs
@@ -82,13 +96,17 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch
 
 def make_train_step(cfg: GWDepthConfig) -> Callable:
     """(state, batch, generator) -> (state, log vector on the device).
-    The returned callable carries `log_keys`, filled on the first call."""
+    Over a data mesh (`state.mesh`) `batch` is this rank's part of the
+    global batch and the log vector is the global one, the same on every
+    rank. The returned callable carries `log_keys`, filled on the first
+    call."""
     log_keys: list = []
     A = max(int(cfg.grad_accum), 1)
 
-    def loss_and_backward(model, batch: Batch, generator, scale: float):
+    def loss_and_backward(model, batch: Batch, generator, scale: float,
+                          reduce: Reducer):
         outputs = model(batch.images, batch.valid, generator=generator)
-        loss, logs = compute_losses(cfg, outputs, batch)
+        loss, logs = compute_losses(cfg, outputs, batch, reduce)
         (loss * scale).backward()
         if not log_keys:
             # sorted, as the JAX step's keys come out of its pytree
@@ -103,7 +121,8 @@ def make_train_step(cfg: GWDepthConfig) -> Callable:
         if B % A:
             raise ValueError(f"batch {B} not divisible by grad_accum {A}")
         logs = [loss_and_backward(model, batch.map(lambda t: t[i::A]),
-                                  generator, 1.0 / A) for i in range(A)]
+                                  generator, 1.0 / A, state.mesh.all_sum)
+                for i in range(A)]
         state.apply_gradients()
         return state, torch.stack(logs).mean(dim=0)
 

@@ -17,10 +17,21 @@ Outputs per image `<name>`:
 On the card the model runs kernels K1 and K2 (`use_pallas`, bf16 taps in
 K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
 
+Weights: `--torch_init` an original-code `.pth`, or `--resume` a
+checkpoint of the port's `main.py` (its `checkpoint.pth`, or the
+directory holding it); the JAX package's orbax directories are refused.
+
+`--mesh N` serves data-parallel under torchrun with N ranks
+(`torchrun --nproc_per_node N -m gwdepth_tpu_torch.predict --mesh N
+--batch B ...`): each rank runs its contiguous B / N images of every
+batch on `cuda:LOCAL_RANK` and writes those images' files, as the JAX
+CLI shards the serving batch over `data`.
+
 Usage:
   python -m gwdepth_tpu_torch.predict --images <dir|file> --output_dir out \
-      [--torch_init <original.pth>] [--score 0.75] [--tiny] [--device cuda] \
-      [--no_pallas] [--no_line] [--save_vis]
+      [--torch_init <original.pth> | --resume <checkpoint.pth|dir>] \
+      [--score 0.75] [--tiny] [--device cuda] [--no_pallas] [--no_line] \
+      [--save_vis] [--batch B] [--mesh N]
 """
 
 from __future__ import annotations
@@ -44,8 +55,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="image file or directory of images")
     p.add_argument("--output_dir", required=True)
     p.add_argument("--resume", type=str, default="",
-                   help="orbax checkpoint directory (not supported by the "
-                        "port yet)")
+                   help="a checkpoint of the port's main.py: "
+                        "checkpoint.pth or its directory")
     p.add_argument("--torch_init", type=str, default="",
                    help="original GlassRGBD .pth checkpoint to load")
     p.add_argument("--score", type=float, default=0.75,
@@ -65,8 +76,8 @@ def build_argparser() -> argparse.ArgumentParser:
                    help="images per forward pass (last batch pads by "
                         "repeating)")
     p.add_argument("--mesh", type=int, default=1,
-                   help="devices to shard the batch over (not supported by "
-                        "the port yet)")
+                   help="ranks to shard the batch over: the torchrun world "
+                        "size")
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--seed", type=int, default=0,
                    help="seed of the random weights when no checkpoint")
@@ -157,16 +168,24 @@ def config_from_args(args: argparse.Namespace):
 
 def main(argv=None):
     args = build_argparser().parse_args(argv)
-    if args.resume:
-        raise SystemExit("--resume (orbax checkpoints) is not supported by "
-                         "the PyTorch port yet; use --torch_init")
-    if args.mesh > 1:
-        raise SystemExit("--mesh is not supported by the PyTorch port yet")
+    from gwdepth_tpu_torch.parallel.mesh import env_world_size
+
+    world = env_world_size()
+    if args.mesh != world:
+        raise SystemExit(f"--mesh {args.mesh}: the data mesh spans the "
+                         f"torchrun world, {world} rank(s)")
+    if max(1, args.batch) % args.mesh:
+        raise SystemExit(f"--batch {args.batch} must be a multiple of "
+                         f"--mesh {args.mesh}")
     import torch
+    from gwdepth_tpu_torch.export import load_weights
     from gwdepth_tpu_torch.models import build_glassrgbd
+    from gwdepth_tpu_torch.parallel.mesh import make_mesh, setup
 
     if args.device == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--device cuda, but CUDA is not available")
+    device = setup(args.device)
+    mesh = make_mesh((args.mesh,))
     cfg = config_from_args(args)
     cfg.set_matmul_precision()
 
@@ -179,13 +198,16 @@ def main(argv=None):
     if args.torch_init:
         n = load_original_checkpoint(model, args.torch_init)
         print(f"loaded {args.torch_init}: {n} tensors")
+    elif args.resume:
+        print(f"restored {load_weights(model, args.resume, '')}")
     else:
-        print("WARNING: random weights (no --torch_init) - for pipeline "
-              "smoke tests only")
-    model = model.to(args.device)
+        print("WARNING: random weights (no --torch_init or --resume) - for "
+              "pipeline smoke tests only")
+    model = model.to(device)
 
     ch, cw = cfg.eval_hw
     B = max(1, args.batch)
+    part = mesh.share(B)
     for start in range(0, len(files), B):
         group = files[start:start + B]
         metas, canvases, valids = [], [], []
@@ -198,9 +220,11 @@ def main(argv=None):
         while len(canvases) < B:          # pad the tail batch by repetition
             canvases.append(canvases[-1])
             valids.append(valids[-1])
+        # this rank's contiguous part of the batch
+        metas = metas[part]
         with torch.no_grad():
-            out = model(torch.from_numpy(np.stack(canvases)).to(args.device),
-                        torch.from_numpy(np.stack(valids)).to(args.device))
+            out = model(torch.from_numpy(np.stack(canvases[part])).to(device),
+                        torch.from_numpy(np.stack(valids[part])).to(device))
         outb = {"depth": out["pred_depth"][-1], "seg": out["pred_seg"]}
         if out["pred_logits"] is not None:
             outb["logits"] = out["pred_logits"]
@@ -258,4 +282,7 @@ def _emit_one(out, bi, path, ow, oh, h, w, cfg, args):
 
 
 if __name__ == "__main__":
+    from gwdepth_tpu_torch.parallel.mesh import teardown
+
     main()
+    teardown()

@@ -6,7 +6,9 @@ epoch, args}, plus the step count. `model` holds the original parameter
 names, so a port checkpoint loads into the original code by name and the
 original's `.pth` loads here (weights only). Writes go to a temporary
 file first and are renamed into place, so a cut run never leaves half a
-checkpoint.
+checkpoint. Over data-parallel ranks, whose states are equal, rank 0
+writes and the others wait at a barrier until the file is there; every
+rank restores.
 """
 
 from __future__ import annotations
@@ -28,22 +30,30 @@ class CheckpointManager:
 
     def save(self, epoch: int, state, config=None) -> str:
         """Write the rolling checkpoint (and the epoch's copy at every
-        `save_freq`-th epoch); returns the rolling path."""
+        `save_freq`-th epoch) from rank 0 of `state.mesh`; returns the
+        rolling path."""
+        mesh = state.mesh
+        paths = [os.path.join(self.directory, ROLLING)]
+        if (epoch + 1) % self.save_freq == 0:
+            paths.append(os.path.join(self.directory,
+                                      f"checkpoint{epoch:04}.pth"))
+        if mesh.is_main:
+            self._write(epoch, state, config, paths)
+        mesh.barrier()
+        return paths[0]
+
+    @staticmethod
+    def _write(epoch: int, state, config, paths) -> None:
         payload = {"model": state.model.state_dict(),
                    "optimizer": state.optimizer.state_dict(),
                    "lr_scheduler": state.scheduler.state_dict(),
                    "epoch": epoch, "step": state.step,
                    "args": (dataclasses.asdict(config)
                             if config is not None else None)}
-        paths = [os.path.join(self.directory, ROLLING)]
-        if (epoch + 1) % self.save_freq == 0:
-            paths.append(os.path.join(self.directory,
-                                      f"checkpoint{epoch:04}.pth"))
         for path in paths:
             tmp = f"{path}.tmp{os.getpid()}"
             torch.save(payload, tmp)
             os.replace(tmp, path)
-        return paths[0]
 
     def latest(self) -> Optional[str]:
         path = os.path.join(self.directory, ROLLING)

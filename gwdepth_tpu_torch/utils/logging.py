@@ -1,9 +1,10 @@
-"""Metric meters + training logger, single process.
+"""Metric meters + training logger.
 
 The port's `SmoothedValue` / `MetricLogger` (`gwdepth_tpu.utils.logging`):
 windowed median/avg meters, a global average, and a console line every
 `print_freq` steps with ETA, iteration and data time, printed the same
-way. A run has one process, so nothing is reduced across processes.
+way. Over data-parallel ranks `sync` sums a meter's count and total
+over the ranks, and only rank 0 prints.
 """
 
 from __future__ import annotations
@@ -56,6 +57,12 @@ class SmoothedValue:
     def value(self) -> float:
         return self.deque[-1] if self.deque else 0.0
 
+    def sync(self, mesh):
+        """Sum (count, total) over the ranks of `mesh` (a `DataMesh`);
+        the window stays local."""
+        count, total = mesh.sum_host([self.count, self.total])
+        self.count, self.total = int(count), float(total)
+
     def __str__(self):
         return self.fmt.format(median=self.median, avg=self.avg,
                                global_avg=self.global_avg, max=self.max,
@@ -66,10 +73,13 @@ class MetricLogger:
     """Named meters and the periodic status line."""
 
     def __init__(self, delimiter: str = "  ", print_freq: int = 10):
+        from gwdepth_tpu_torch.parallel.mesh import is_main
+
         self.meters: Dict[str, SmoothedValue] = collections.defaultdict(
             SmoothedValue)
         self.delimiter = delimiter
         self.print_freq = print_freq
+        self.is_main = is_main()
 
     def update(self, **kwargs):
         for k, v in kwargs.items():
@@ -79,6 +89,13 @@ class MetricLogger:
         if attr in self.meters:
             return self.meters[attr]
         raise AttributeError(attr)
+
+    def synchronize_between_processes(self, mesh):
+        """`sync` every meter over `mesh`. Meters fed the train step's
+        log vectors, which are global on every rank, need none: the sum of
+        W equal copies leaves each global_avg as it is."""
+        for m in self.meters.values():
+            m.sync(mesh)
 
     def __str__(self):
         return self.delimiter.join(
@@ -104,6 +121,8 @@ class MetricLogger:
             yield obj
             iter_time.update(time.time() - end)
             if i % self.print_freq == 0 or (total and i == total - 1):
+                # every rank moves its pending values to its meters; rank
+                # 0 prints
                 if before_print is not None:
                     before_print()
                 if total:
@@ -112,15 +131,17 @@ class MetricLogger:
                     prefix = f"{header} [{i}/{total}] eta: {eta_str}"
                 else:
                     prefix = f"{header} [{i}]"
-                print(self.delimiter.join([
-                    prefix, str(self),
-                    f"time: {iter_time}", f"data: {data_time}"]), flush=True)
+                if self.is_main:
+                    print(self.delimiter.join([
+                        prefix, str(self), f"time: {iter_time}",
+                        f"data: {data_time}"]), flush=True)
             i += 1
             end = time.time()
         tt = str(datetime.timedelta(seconds=int(time.time() - start)))
         n = max(i, 1)
-        print(f"{header} Total time: {tt} "
-              f"({(time.time() - start) / n:.4f} s / it)", flush=True)
+        if self.is_main:
+            print(f"{header} Total time: {tt} "
+                  f"({(time.time() - start) / n:.4f} s / it)", flush=True)
 
 
 def git_sha_banner() -> str:

@@ -13,6 +13,7 @@ on both sides, which are exact in float32), and the kernels only
 reassociate the sums.
 """
 
+import os
 import time
 
 import numpy as np
@@ -26,6 +27,23 @@ from gwdepth_tpu_torch.ops import window_msa as port_wm
 TOL = 1e-4
 
 pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(autouse=True, scope="module")
+def cupti_kept_between_profiles():
+    """Kineto tears CUPTI down after every profiling session and sets it
+    up again at the next; PyTorch keeps it up where CUDA graphs are in use
+    (torch.profiler, TEARDOWN_CUPTI), since setting it up again after
+    graph captures is unreliable. This file captures graphs before its
+    profiles, and `test_k3_kernel_is_one_launch`, the third profile, once
+    came back with no device events: keep CUPTI up for the module."""
+    old = os.environ.get("TEARDOWN_CUPTI")
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    yield
+    if old is None:
+        del os.environ["TEARDOWN_CUPTI"]
+    else:
+        os.environ["TEARDOWN_CUPTI"] = old
 
 
 @pytest.fixture

@@ -16,12 +16,14 @@ from PIL import Image
 
 from gwdepth_tpu.config import tiny_test_config as jax_tiny
 from gwdepth_tpu.data import dataset as jds
+from gwdepth_tpu.data import depth_only as jdo
 from gwdepth_tpu.data import transforms as jt
 from gwdepth_tpu.data.batch import dummy_batch as jax_dummy_batch
 from gwdepth_tpu.tools import synthetic as jsyn
 
 from gwdepth_tpu_torch.config import tiny_test_config
 from gwdepth_tpu_torch.data import dataset as pds
+from gwdepth_tpu_torch.data import depth_only as pdo
 from gwdepth_tpu_torch.data import transforms as pt
 from gwdepth_tpu_torch.data.batch import FIELDS, dummy_batch
 from gwdepth_tpu_torch.tools import synthetic as psyn
@@ -110,6 +112,52 @@ def test_eval_sample_matches_jax(datasets, idx):
     pcfg, jcfg = datasets
     _equal_items(pds.GlassRGBDDataset(pcfg, "val")[idx],
                  jds.GlassRGBDDataset(jcfg, "val")[idx])
+
+
+@pytest.fixture(scope="module")
+def bts_list(dataset_root):
+    """A BTS-style filenames file over the synthetic scenes: `rgb depth
+    focal` per line, paths relative to the root with a leading slash."""
+    root = dataset_root / "jax"
+    names = (root / "train.txt").read_text().split()
+    f = root / "bts_train.txt"
+    f.write_text("".join(f"/rgb/{n}.png /depth/{n}.png 518.8579\n"
+                         for n in names))
+    return root, f
+
+
+@pytest.mark.parametrize("split,idx,seed,scale", [
+    ("train", 0, 4, 1000.0), ("train", 2, 9, 1000.0), ("train", 1, 5, 256.0),
+    ("val", 0, None, 1000.0), ("val", 3, None, 256.0)])
+def test_depth_only_sample_matches_jax(bts_list, split, idx, seed, scale):
+    root, names = bts_list
+    pcfg, jcfg = tiny_test_config(with_line=False), jax_tiny(with_line=False)
+    got = pdo.DepthOnlyDataset(pcfg, str(root), str(names), split,
+                               depth_scale=scale).__getitem__(idx, seed=seed)
+    want = jdo.DepthOnlyDataset(jcfg, str(root), str(names), split,
+                                depth_scale=scale).__getitem__(idx, seed=seed)
+    assert not got["line_mask"].any() and not got["seg"].any()
+    _equal_items(got, want)
+
+
+def test_depth_only_dataset_feeds_the_loader_shares(bts_list):
+    """The depth-only set through the Loader: two ranks' parts of each
+    global batch side by side are one process's batch."""
+    root, names = bts_list
+    ds = pdo.DepthOnlyDataset(tiny_test_config(with_line=False), str(root),
+                              str(names), "train")
+    one = [(b, n) for b, n in pds.Loader(ds, 2, seed=1,
+                                         num_workers=1).epoch(0)]
+    parts = [list(pds.Loader(ds, 2, seed=1, num_workers=1, rank=r,
+                             world=2).epoch(0)) for r in range(2)]
+    assert len(one) == 2
+    for bi, (batch, n) in enumerate(one):
+        assert parts[0][bi][1] + parts[1][bi][1] == n
+        for f in FIELDS:
+            np.testing.assert_array_equal(
+                np.concatenate([getattr(parts[r][bi][0], f).numpy()
+                                for r in range(2)]),
+                getattr(batch, f).numpy(), err_msg=f)
 
 
 @pytest.fixture(scope="module")

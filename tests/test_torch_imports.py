@@ -55,7 +55,8 @@ def test_port_files_found():
                 "parallel/train_state.py", "parallel/train_step.py",
                 "data/batch.py", "data/dataset.py", "tools/synthetic.py",
                 "utils/logging.py", "utils/checkpoint.py",
-                "ops/window_msa.py"):
+                "ops/window_msa.py", "parallel/mesh.py",
+                "data/depth_only.py"):
         assert f"gwdepth_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(PORT_FILES) >= 35
 

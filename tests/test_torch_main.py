@@ -111,8 +111,9 @@ def test_main_flags_and_defaults_match_jax():
 
 
 @pytest.mark.parametrize("flag", [
-    ["--mesh", "4,2"], ["--mesh", "8"], ["--pre_norm"]])
+    ["--mesh", "4,2"], ["--mesh", "1,2"], ["--pre_norm"]])
 def test_main_refuses_what_the_port_lacks(tmp_path, flag):
+    """A two-axis mesh (tensor parallelism) and `--pre_norm`."""
     with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
         pmain.main(_args(tmp_path, tmp_path / "o", *flag))
 

@@ -397,9 +397,18 @@ def test_predict_cli_torch_init(tmp_path):
 
 @pytest.mark.parametrize("flag", [["--resume", "ckpt"], ["--mesh", "4"]])
 def test_predict_cli_refuses_what_the_port_lacks(tmp_path, flag):
-    with pytest.raises(SystemExit, match="port"):
+    """`--resume` of an orbax checkpoint directory (the port reads its own
+    `torch.save` checkpoints), and a `--mesh` wider than the torchrun
+    world (one process here)."""
+    Image.fromarray(np.zeros((24, 32, 3), np.uint8)).save(tmp_path / "a.png")
+    (tmp_path / "ckpt" / "0").mkdir(parents=True)      # an orbax step
+    match = {"--resume": "not the JAX package's orbax",
+             "--mesh": "spans the torchrun world, 1 rank"}[flag[0]]
+    with pytest.raises(SystemExit, match=match):
         predict.main(["--images", os.fspath(tmp_path), "--output_dir",
-                      os.fspath(tmp_path / "o"), "--tiny", *flag])
+                      os.fspath(tmp_path / "o"), "--tiny", "--device", "cpu",
+                      *[os.fspath(tmp_path / v) if v == "ckpt" else v
+                        for v in flag]])
 
 
 @pytest.mark.parametrize("device,flags,use_pallas", [
