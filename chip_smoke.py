@@ -148,6 +148,22 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               the parameters to 3x the control's gaps; peak memory per
               process. `chip_smoke.py --dp-role main|pair --dp-dir DIR`
               is how the phase starts those processes.
+  19. tensor parallel  (a) `main.main --mesh 1,1 --use_pallas` for one
+              epoch on phase 7's scenes under torchrun (NCCL, one rank)
+              and alone, under deterministic algorithms: log.txt and every
+              final parameter bit-equal; per step K1 4, K2 25 and 51
+              backward. (b) a (1, 2) mesh of two processes on the one card
+              over gloo (the split weights' all_gather through the host),
+              each rank the train step on the whole of phase 18b's 3
+              global batches with its half of every weight that
+              `parallel/partition.py` splits, against one process in a
+              process of its own (deterministic algorithms, dropout 0):
+              first-step losses and the gradients before the clip
+              bit-equal, later losses and the parameters within 1e-6 x
+              max(1, |w|); K1 and K2 counted per rank; the parameter and
+              AdamW bytes per rank beside one process's and the split
+              share of the parameters. `--dp-role tp-main|tp-steps`
+              starts those processes.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -3018,9 +3034,12 @@ def _dp_pair_setup(spec: dict, rank: int = 0, world: int = 1):
 
 @contextlib.contextmanager
 def first_clip_grads(record: dict):
-    """The gradients that the first `clip_grad_norm_` call sees (after
-    the reduction over ranks, before the clip), into `record` by id."""
-    clip = torch.nn.utils.clip_grad_norm_
+    """The gradients that the first clip of the train state sees (after
+    the reduction over ranks, before the clip; a split weight's shard),
+    into `record` by id."""
+    from gwdepth_tpu_torch.parallel import train_state
+
+    clip = train_state.clip_grad_norm_
 
     def spy(params, *args, **kw):
         params = list(params)
@@ -3028,11 +3047,11 @@ def first_clip_grads(record: dict):
             record.update({id(p): p.grad.detach().cpu() for p in params})
         return clip(params, *args, **kw)
 
-    torch.nn.utils.clip_grad_norm_ = spy
+    train_state.clip_grad_norm_ = spy
     try:
         yield
     finally:
-        torch.nn.utils.clip_grad_norm_ = clip
+        train_state.clip_grad_norm_ = clip
 
 
 def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
@@ -3042,11 +3061,12 @@ def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
     before the clip and the final parameters."""
     from gwdepth_tpu_torch.parallel import (create_train_state,
                                             make_train_step)
+    from gwdepth_tpu_torch.parallel.partition import unshard
 
     state = create_train_state(cfg, model, steps_per_epoch=4, mesh=mesh)
     step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(
-        SEED + (mesh.rank if mesh else 0))
+        SEED + (mesh.data_rank if mesh else 0))
     torch.cuda.reset_peak_memory_stats()
     logs, counts, points, first = [], [], [], {}
     with deterministic_algorithms(), first_clip_grads(first):
@@ -3061,12 +3081,24 @@ def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
                            if k != "matcher_calls"})
             logs.append(vec.cpu().tolist())
             points.append(rec)
+    peak = torch.cuda.max_memory_allocated()
+
+    def nbytes(ts):
+        return sum(t.numel() * t.element_size() for t in ts)
+
+    # what this rank holds: parameters (a split weight's shard) and AdamW's
+    # moments; then the split tensors gathered whole (collectives)
+    held = {"param_bytes": nbytes(model.parameters()),
+            "adam_bytes": nbytes(t for st in state.optimizer.state.values()
+                                 for t in st.values()
+                                 if torch.is_tensor(t) and t.dim())}
     return {"keys": list(step.log_keys), "logs": logs, "counts": counts,
-            "points": points, "peak_bytes": torch.cuda.max_memory_allocated(),
-            "grads": {n: first[id(p)] for n, p in model.named_parameters()
-                      if id(p) in first},
-            "params": {n: p.detach().cpu()
-                       for n, p in model.named_parameters()}}
+            "points": points, "peak_bytes": peak, **held,
+            "grads": unshard(model, {n: first[id(p)] for n, p in
+                                     model.named_parameters()
+                                     if id(p) in first}),
+            "params": unshard(model, {n: p.detach().cpu() for n, p in
+                                      model.named_parameters()})}
 
 
 def dp_pair_role(d: str) -> None:
@@ -3287,14 +3319,245 @@ def phase_data_parallel(card: str, train: dict, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (phase 19)
+# ---------------------------------------------------------------------------
+
+TP_STEPS = DP_STEPS            # phase 19b's train steps
+# 19b: a (1, 2) mesh of two processes against one process, from equal
+# weights on equal batches, each under deterministic algorithms in a
+# process of its own with the same environment: both model ranks run the
+# whole batch with the whole (gathered) weights and the clip takes the
+# one-process norm, so the losses, the gradients before the clip and the
+# parameters are held to TP_PARAM_REL_TOL x max(1, |w|), and reported
+# bit for bit
+TP_PARAM_REL_TOL = 1e-6
+
+
+def tp_main_role(d: str) -> None:
+    """Phase 19a in its own process (under torchrun, or not): `main.main`
+    with the spec's flags (`--mesh 1,1`) under deterministic algorithms,
+    the launch counts over it and over one more step, the final
+    parameters (rank 0)."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import make_train_step
+    from gwdepth_tpu_torch.parallel.mesh import launched
+    from gwdepth_tpu_torch.parallel.partition import full_state_dict
+
+    spec = _dp_spec(d)
+    probe()
+    torch.cuda.synchronize()
+    _reset_counts()
+    with deterministic_algorithms():
+        state = train_main.main(spec["args"])
+        torch.cuda.synchronize()
+        counts = _counts()
+        mesh, cfg = state.mesh, state.model.cfg
+        loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                        seed=SEED, num_workers=4, rank=mesh.data_rank,
+                        world=mesh.data_size)
+        batch = [b for b, _ in loader.epoch(5)][0].to("cuda")
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.synchronize()
+        _reset_counts()
+        make_train_step(cfg)(state, batch, gen)
+        torch.cuda.synchronize()
+        per_step = {k: v for k, v in _counts().items()
+                    if k != "matcher_calls"}
+    params = full_state_dict(state.model)
+    if mesh.is_main:
+        torch.save({k: v.detach().cpu() for k, v in params.items()},
+                   os.path.join(d, "params.pt"))
+    _dp_write(d, f"result{mesh.rank}.json", {
+        "launched": launched(), "world": mesh.world,
+        "distributed": mesh.distributed, "shape": list(mesh.shape),
+        "axes": list(mesh.axes),
+        "backend": (torch.distributed.get_backend()
+                    if mesh.distributed else None),
+        "counts": counts, "per_step": per_step})
+    if mesh.distributed:
+        torch.distributed.destroy_process_group()
+
+
+def tp_steps_role(d: str) -> None:
+    """Phase 19b, one process: under torchrun, a rank of the (1, 2) mesh
+    over gloo on the one card; alone, the one-process reference. Each
+    runs TP_STEPS train steps (`dp_steps`) on the whole global batches;
+    rank 0 (or the reference) saves the whole gradients and parameters."""
+    from gwdepth_tpu_torch.parallel import make_mesh, setup
+    from gwdepth_tpu_torch.parallel.mesh import launched
+    from gwdepth_tpu_torch.parallel.partition import spec_for
+
+    spec = _dp_spec(d)
+    if launched():
+        setup("cuda:0", backend="gloo")
+        mesh = make_mesh((1, 2), ("data", "model"))
+    else:
+        mesh = None
+    cfg, model, batches = _dp_pair_setup(spec)
+    full_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    n_params = sum(p.numel() for p in model.parameters())
+    split = sum(p.numel() for n, p in model.named_parameters()
+                if spec_for(n, p.shape, 2) is not None)
+    run = dp_steps(cfg, model, batches, mesh)
+    name = "tp_one" if mesh is None else f"tp_rank{mesh.rank}"
+    if mesh is None or mesh.is_main:
+        torch.save({k: run[k] for k in ("params", "grads", "points")},
+                   os.path.join(d, f"{name}.pt"))
+    _dp_write(d, f"{name}.json", {
+        "keys": run["keys"], "logs": run["logs"], "counts": run["counts"],
+        "peak_bytes": run["peak_bytes"], "param_bytes": run["param_bytes"],
+        "adam_bytes": run["adam_bytes"], "full_param_bytes": full_bytes,
+        "n_params": n_params, "split_at_2": split,
+        "mesh": None if mesh is None else [list(mesh.shape),
+                                           mesh.data_rank, mesh.model_rank],
+        "backend": (torch.distributed.get_backend() if mesh else None)})
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
+
+
+def phase_tp_mesh1(card: str, train: dict, tmp: str) -> dict:
+    """Phase 19a: `main.main --mesh 1,1 --use_pallas` for one epoch on
+    phase 7's scenes under torchrun (one rank, NCCL) and alone, each in
+    its own process under deterministic algorithms: log.txt and the final
+    parameters bit-equal; launches over each run and per step."""
+    steps = train["n_train"] // TRAIN_BS
+    want = _expected_counts(steps, train["n_val"])
+    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    res, secs = {}, {}
+    for label, nproc in (("torchrun", 1), ("alone", 0)):
+        d = os.path.join(tmp, f"tp-{label}")
+        os.makedirs(d)
+        args = _with_args(train["args"], output_dir=os.path.join(d, "exp")) \
+            + ["--epochs", "1", "--mesh", "1,1"]
+        _dp_write(d, "spec.json", {"args": args})
+        secs[label] = _run_role("tp-main", d, nproc)
+        with open(os.path.join(d, "result0.json")) as f:
+            res[label] = json.load(f)
+        res[label]["log"] = [json.loads(ln) for ln in
+                             open(os.path.join(d, "exp", "log.txt"))]
+        res[label]["params"] = torch.load(os.path.join(d, "params.pt"))
+    tr, al = res["torchrun"], res["alone"]
+    assert tr["launched"] and tr["distributed"] and tr["world"] == 1 \
+        and tr["backend"] == "nccl", tr
+    assert not al["launched"] and not al["distributed"], al
+    for r in (tr, al):
+        assert r["shape"] == [1, 1] and r["axes"] == ["data", "model"], r
+        assert r["counts"] == want, (r["counts"], want)
+        assert r["per_step"] == per_step, r["per_step"]
+    log_equal = tr["log"] == al["log"]
+    unequal = [n for n in al["params"]
+               if not torch.equal(tr["params"][n], al["params"][n])]
+    summary = {"seconds": secs, "launches": tr["counts"],
+               "per_step": tr["per_step"], "log_bit_equal": log_equal,
+               "params_bit_equal": [len(al["params"]) - len(unequal),
+                                    len(al["params"])]}
+    log(f"[tp-mesh1] main.main --mesh 1,1 --use_pallas, 1 epoch, under "
+        f"torchrun (1 rank, NCCL) and alone: {json.dumps(summary)} on "
+        f"{card}")
+    assert log_equal, (tr["log"], al["log"])
+    assert not unequal, unequal[:5]
+    return summary
+
+
+def _rel_gap(got: dict, ref: dict) -> float:
+    """Largest |a - b| / max(1, |b|) over every element of the tensors."""
+    return max(float(((got[n].double() - w.double()).abs()
+                      / w.double().abs().clamp(min=1.0)).max())
+               for n, w in ref.items())
+
+
+def phase_tp_pair(card: str, train: dict, tmp: str) -> dict:
+    """Phase 19b: a (1, 2) mesh of two processes on the one card over
+    gloo (the split weights' all_gather staged through the host, the
+    all_reduce and broadcast on CUDA tensors), TP_STEPS steps of the
+    shipped config on phase 18b's batches (dropout 0, `use_pallas`),
+    against one process in a process of its own: losses, gradients
+    before the clip and parameters, the launches per rank and step, and
+    the parameter and AdamW bytes each rank holds."""
+    d = os.path.join(tmp, "tp-pair")
+    os.makedirs(d)
+    _dp_write(d, "spec.json", {"args": train["args"]})
+    secs = {"one": _run_role("tp-steps", d, 0),
+            "pair": _run_role("tp-steps", d, nproc=2)}
+
+    def load(name):
+        with open(os.path.join(d, f"{name}.json")) as f:
+            return json.load(f)
+
+    one, ranks = load("tp_one"), [load(f"tp_rank{r}") for r in range(2)]
+    ref = torch.load(os.path.join(d, "tp_one.pt"))
+    got = torch.load(os.path.join(d, "tp_rank0.pt"))
+    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    for p in [one] + ranks:
+        assert p["counts"] == [per_step] * TP_STEPS, p["counts"]
+    assert [r["mesh"] for r in ranks] == [[[1, 2], 0, 0], [[1, 2], 0, 1]]
+    assert {r["backend"] for r in ranks} == {"gloo"}
+    assert ranks[0]["logs"] == ranks[1]["logs"]
+    assert ranks[0]["keys"] == one["keys"]
+    loss = _loss_gaps(ranks[0]["logs"], one["logs"])
+    first_equal = ranks[0]["logs"][0] == one["logs"][0]
+    grads_equal = sum(torch.equal(got["grads"][n], w)
+                      for n, w in ref["grads"].items())
+    params_equal = sum(torch.equal(got["params"][n], w)
+                       for n, w in ref["params"].items())
+    points_equal = all(torch.equal(a, b) for sa, sb in zip(
+        got["points"], ref["points"]) for a, b in zip(sa, sb))
+    summary = {
+        "seconds": secs, "loss_rel_per_step": loss.tolist(),
+        "first_step_losses_bit_equal": first_equal,
+        "grads_bit_equal": [grads_equal, len(ref["grads"])],
+        "grads_rel_gap": _rel_gap(got["grads"], ref["grads"]),
+        "params_bit_equal": [params_equal, len(ref["params"])],
+        "params_rel_gap": _rel_gap(got["params"], ref["params"]),
+        "points_equal": points_equal,
+        "param_bytes_per_rank": [r["param_bytes"] for r in ranks],
+        "adam_bytes_per_rank": [r["adam_bytes"] for r in ranks],
+        "one_process_param_bytes": one["param_bytes"],
+        "one_process_adam_bytes": one["adam_bytes"],
+        "params": one["n_params"], "split_at_2": one["split_at_2"],
+        "split_share": one["split_at_2"] / one["n_params"],
+        "peak_bytes": [r["peak_bytes"] for r in ranks],
+        "one_process_peak_bytes": one["peak_bytes"],
+        "gloo_staged_through_host": ["all_gather"],
+        "launches_per_step_per_rank": ranks[0]["counts"][0]}
+    log(f"[tp-pair] (1, 2) mesh, 2 ranks on one card over gloo, {TP_STEPS} "
+        f"steps on the whole batch each, against one process: "
+        f"{json.dumps(summary)} on {card}")
+    assert first_equal, (ranks[0]["logs"][0], one["logs"][0])
+    assert grads_equal == len(ref["grads"]), summary
+    assert max(loss) <= TP_PARAM_REL_TOL, summary
+    assert summary["params_rel_gap"] <= TP_PARAM_REL_TOL, summary
+    # each rank holds about half of the split weights and their moments
+    for r in ranks:
+        assert r["param_bytes"] < one["param_bytes"], summary
+        assert r["adam_bytes"] < one["adam_bytes"], summary
+    return summary
+
+
+def phase_tensor_parallel(card: str, train: dict, tmp: str) -> dict:
+    """Phase 19: 19a, then 19b."""
+    t0 = time.perf_counter()
+    out = {"mesh1": phase_tp_mesh1(card, train, tmp),
+           "pair": phase_tp_pair(card, train, tmp)}
+    log(f"[tp] phase 19 took {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--dp-role", choices=("main", "pair"),
-                   help="phase 18's own processes (started by the smoke)")
+    p.add_argument("--dp-role",
+                   choices=("main", "pair", "tp-main", "tp-steps"),
+                   help="phase 18's and 19's own processes (started by the "
+                        "smoke)")
     p.add_argument("--dp-dir")
     args = p.parse_args(argv)
     if args.dp_role:
-        {"main": dp_main_role, "pair": dp_pair_role}[args.dp_role](
+        {"main": dp_main_role, "pair": dp_pair_role,
+         "tp-main": tp_main_role, "tp-steps": tp_steps_role}[args.dp_role](
             args.dp_dir)
         return
     t_start = time.perf_counter()
@@ -3323,6 +3586,7 @@ def main(argv=None) -> None:
         exported = phase_export(card, tmp)
         bf16 = phase_bf16(card, train)
         dp = phase_data_parallel(card, train, tmp)
+        tp = phase_tensor_parallel(card, train, tmp)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
 
@@ -3508,6 +3772,10 @@ def main(argv=None) -> None:
         entry["dp_nccl_launches_per_step"] = dp["nccl"]["per_step"][key]
         entry["dp_pair_launches_per_step_per_rank"] = \
             dp["pair"]["launches_per_step_per_rank"][key]
+        entry["tp_mesh1_run_launches"] = tp["mesh1"]["launches"][key]
+        entry["tp_mesh1_launches_per_step"] = tp["mesh1"]["per_step"][key]
+        entry["tp_pair_launches_per_step_per_rank"] = \
+            tp["pair"]["launches_per_step_per_rank"][key]
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
@@ -3567,7 +3835,12 @@ def main(argv=None) -> None:
         "(phase 17). dp_nccl_run_launches / _per_step: main.main --mesh -1 "
         "under torchrun over NCCL, 8 steps and 4 eval forwards / one "
         "timed step; dp_pair_launches_per_step_per_rank: a rank's step of "
-        "the two gloo ranks on the card (phase 18).")
+        "the two gloo ranks on the card (phase 18). tp_mesh1_run_launches / "
+        "_per_step: main.main --mesh 1,1 under torchrun over NCCL, 4 steps "
+        "and 2 eval forwards / one more step; "
+        "tp_pair_launches_per_step_per_rank: a rank's step of the (1, 2) "
+        "mesh over gloo on the card, with the split weights gathered whole "
+        "(phase 19).")
     dprof = depth_only["profile"]
     log(f"[depth-only] forward median {depth_only['forward_ms']:.3f} ms, "
         f"device busy {dprof.get('device_busy_ms', float('nan')):.3f} ms, "

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
 from typing import Dict, Iterable
@@ -29,6 +30,21 @@ KERNELS = ("ref_attn_diffusion", "conv3x3_ln_act", "window_msa",
            "layout_fence")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def refuse_dtensor(op: str, *tensors) -> None:
+    """Raise TypeError when one of `tensors` is a DTensor: the kernels,
+    their custom ops and their plain versions take plain tensors only, so
+    a sharded weight must be gathered whole before it reaches them
+    (`parallel/partition.py`), never fall back to another path. A DTensor
+    exists only once its module is imported, so nothing is imported."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    if mod is None:
+        return
+    for t in tensors:
+        if isinstance(t, mod.DTensor):
+            raise TypeError(f"{op}: a DTensor input; gather it to a plain "
+                            "tensor first (parallel/partition.py)")
 
 
 def _nvcc() -> str:

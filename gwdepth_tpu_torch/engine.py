@@ -13,7 +13,10 @@ Over data-parallel ranks (`mesh`) each rank steps on its part of every
 global batch; the logs are already global. Eval sums its accumulators
 over the ranks, gathers the line dumps to rank 0 in dataset order, and
 each rank writes its own images' dense and line pictures; only rank 0
-writes the training-input overlay.
+writes the training-input overlay. On a `(data, model)` mesh every sum
+and gather runs over the data group, and of the M ranks that hold the
+same images only model rank 0 writes their pictures, so each data
+coordinate counts and writes once.
 """
 
 from __future__ import annotations
@@ -104,6 +107,9 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
     acc = None
     names, line_out, gts, order = [], [], [], []
     keep_lines = cfg.with_line and (collect_lines or save_line_dir)
+    if mesh.model_rank:
+        # model rank 0 of this data coordinate writes the same pictures
+        save_dense_dir = save_line_dir = None
     for bi, (batch, batch_names) in enumerate(loader.epoch(0)):
         res = eval_step(model, batch.to(device))
         if cfg.with_dense:
@@ -123,7 +129,7 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
         if keep_lines:
             n = len(batch_names)      # the rows past it pad the last batch
             names += batch_names
-            order += [(bi, mesh.rank, j) for j in range(n)]
+            order += [(bi, mesh.data_rank, j) for j in range(n)]
             line_out.append([res[k][:n] for k in ("pred_logits",
                                                   "pred_lines", "extent")])
             if save_line_dir is not None:
@@ -155,8 +161,8 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
                            os.path.join(save_line_dir, f"{d['name']}.png"))
 
     if collect_lines:
-        # every rank's dumps, on rank 0, in dataset order: global batch,
-        # then rank, then position in the rank's part
+        # every data rank's dumps, on rank 0, in dataset order: global
+        # batch, then data rank, then position in the rank's part
         parts = mesh.gather(list(zip(order, line_dumps)))
         line_dumps = [d for _, d in sorted(
             (p for part in parts for p in part), key=lambda kv: kv[0])] \

@@ -22,6 +22,17 @@ gradients and the eval metrics are those of the global batch
 line dumps and the checkpoints, and the dropout generator of rank r
 starts from `seed + r`.
 
+Tensor parallel over a `(data, model)` mesh of D x M ranks: `--mesh D,M`
+(one entry may be -1), e.g. `torchrun --nproc_per_node 4 -m
+gwdepth_tpu_torch.main --mesh 2,2 ...`. The batch splits over D; the M
+ranks of a data coordinate step on the same images, each holding 1/M of
+every weight that `parallel/partition.py` splits (the JAX package's
+rule) and of its AdamW moments, and gathering those weights whole for
+each forward. The result is the one-process run's: the dropout
+generator starts from `seed + data rank`, so the M ranks draw the same
+masks, and the checkpoints hold whole tensors. `--eval` runs on
+replicated weights, as the JAX CLI's.
+
 Eval outputs, as the JAX CLI writes them under `<output_dir>`:
 `--dump_gt_lines` the GT line npz files (`lines_npz/eval`), and with
 `--eval`: `--benchmark` one prediction npz per image
@@ -30,10 +41,9 @@ and `aph_score`), `--save_dense` the depth/seg grids (`dense_pred`),
 `--save_line` the predicted-vs-GT line overlays (`line_pred`). Training
 writes the first batch's label overlay per epoch to `input_log`.
 
-Every flag of the JAX CLI reaches the run, but two, which stop it
-with an error instead of being ignored (see `_refuse`): a two-axis
-`--mesh` (tensor parallelism, `partition.py`, is not ported), and
-`--pre_norm` (which no JAX model reads either).
+Every flag of the JAX CLI reaches the run, but one, which stops it
+with an error instead of being ignored (see `_refuse`): `--pre_norm`
+(which no JAX model reads either).
 `--bf16` runs the backbone and the DETR's dense layers in bfloat16, as
 the JAX CLI's (`cfg.dtype`; the parameters, the losses and AdamW stay
 float32), and on the card lets cuBLAS and cuDNN round the float32
@@ -118,9 +128,9 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--remat", action="store_true")
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--mesh", type=str, default="-1",
-                   help="'-1' or the world size: data parallel over the "
-                        "torchrun ranks (a 'data,model' mesh is not "
-                        "ported)")
+                   help="mesh shape over the torchrun ranks: '-1' (pure "
+                        "data parallel) or 'D,M' (data x tensor parallel, "
+                        "e.g. '4,2')")
     p.add_argument("--train_h", type=int, default=cfg.train_hw[0])
     p.add_argument("--train_w", type=int, default=cfg.train_hw[1])
     p.add_argument("--eval_h", type=int, default=cfg.eval_hw[0])
@@ -179,27 +189,28 @@ def config_from_args(args: argparse.Namespace) -> GWDepthConfig:
 def _refuse(args: argparse.Namespace, cfg: GWDepthConfig) -> None:
     """Stop on a flag the port does not carry yet, and on a mesh or batch
     that the torchrun world does not fit."""
-    from gwdepth_tpu_torch.parallel.mesh import env_world_size
+    from gwdepth_tpu_torch.parallel.mesh import env_world_size, resolve_shape
 
-    unsupported = ["--pre_norm"] if args.pre_norm else []
-    if len(cfg.mesh_shape) > 1:
-        unsupported.append(f"--mesh {args.mesh} (tensor parallelism, "
-                           "partition.py)")
-    if unsupported:
-        raise SystemExit(f"{', '.join(unsupported)}: not supported by the "
-                         "PyTorch port yet")
+    if args.pre_norm:
+        raise SystemExit("--pre_norm: not supported by the PyTorch port yet")
     world = env_world_size()
-    if cfg.mesh_shape[0] not in (-1, world):
-        raise SystemExit(f"--mesh {args.mesh}: the data mesh spans the "
-                         f"torchrun world, {world} rank(s)")
+    what = ("the data mesh" if len(cfg.mesh_shape) == 1 else
+            "the (data, model) mesh of tensor parallelism")
+    try:
+        shape = resolve_shape(cfg.mesh_shape, world)
+    except ValueError:
+        raise SystemExit(f"--mesh {args.mesh}: {what} spans the torchrun "
+                         f"world, {world} rank(s)") from None
+    D = shape[0]
     for flag, n in (("--batch_size", cfg.batch_size),
                     ("--eval_batch_size", args.eval_batch_size)):
-        if n % world:
-            raise SystemExit(f"{flag} {n} must be a multiple of the "
-                             f"{world} ranks")
-    if (cfg.batch_size // world) % max(cfg.grad_accum, 1):
+        if n % D:
+            raise SystemExit(f"{flag} {n} must be a multiple of the {D} "
+                             "ranks" + ("" if len(shape) == 1
+                                        else " of the data axis"))
+    if (cfg.batch_size // D) % max(cfg.grad_accum, 1):
         raise SystemExit(f"--grad_accum {cfg.grad_accum} must divide each "
-                         f"rank's batch, {cfg.batch_size // world}")
+                         f"rank's batch, {cfg.batch_size // D}")
 
 
 def local_checkpoint(path: str, flag: str) -> str:
@@ -290,11 +301,13 @@ def main(argv=None):
     say("git:", git_sha_banner())
 
     # the weights, the shuffle and the augmentation from `seed` on every
-    # rank; only the dropout masks differ by rank
+    # rank; only the dropout masks differ by data rank (the model ranks of
+    # one data coordinate compute one function of the same images)
     seed = cfg.seed
     np.random.seed(seed)
     torch.manual_seed(seed)
-    generator = torch.Generator(device=device).manual_seed(seed + mesh.rank)
+    generator = torch.Generator(device=device).manual_seed(
+        seed + mesh.data_rank)
 
     model = build_glassrgbd(cfg, seed, device="cpu")
     assert not (args.resume and args.frozen_weights), \
@@ -309,15 +322,15 @@ def main(argv=None):
                                                     "--frozen_weights"))
     model = model.to(device)
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"model: {n_params / 1e6:.1f}M params, device: {device}, data "
-        f"mesh: {mesh.world} rank(s)")
+    say(f"model: {n_params / 1e6:.1f}M params, device: {device}, ranks: "
+        f"{mesh.world}, mesh: {dict(zip(mesh.axes, mesh.shape))}")
 
     eval_ds = build_dataset("val")
     eval_loader = Loader(eval_ds, batch_size=args.eval_batch_size,
                          shuffle=False, drop_last=False,
                          pad_to_batch=args.eval_batch_size > 1,
-                         num_workers=args.num_workers, rank=mesh.rank,
-                         world=mesh.world)
+                         num_workers=args.num_workers, rank=mesh.data_rank,
+                         world=mesh.data_size)
     eval_step = make_eval_step(cfg, return_dense=args.save_dense)
     ckpt_dir = os.path.join(out_dir, "checkpoints")
 
@@ -330,7 +343,7 @@ def main(argv=None):
             return {"gt_lines_dumped": n}
 
     if args.eval:
-        state = create_train_state(cfg, model, mesh=mesh)
+        state = create_train_state(cfg, model, mesh=mesh, shard=False)
         CheckpointManager(ckpt_dir).restore(state)
         stats = evaluate(
             cfg, model, eval_step, eval_loader, device,
@@ -354,8 +367,8 @@ def main(argv=None):
 
     train_loader = Loader(build_dataset("train"),
                           batch_size=cfg.batch_size, shuffle=True, seed=seed,
-                          num_workers=args.num_workers, rank=mesh.rank,
-                          world=mesh.world)
+                          num_workers=args.num_workers, rank=mesh.data_rank,
+                          world=mesh.data_size)
     state = create_train_state(cfg, model,
                                steps_per_epoch=max(len(train_loader), 1),
                                mesh=mesh)

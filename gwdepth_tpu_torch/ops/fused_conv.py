@@ -57,6 +57,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch._build import refuse_dtensor
+
 _ACTS = {None: 0, "gelu": 1, "elu": 2}
 MAX_CO = 256
 # output widths the kernel is built for (Co is padded up to one): the N
@@ -401,7 +403,8 @@ def conv3x3_ln_act(x: torch.Tensor, w: torch.Tensor,
     through the custom op; bf16 taps with float32 accumulation when
     `fast`. CPU tensors take the plain version; CUDA tensors launch the
     kernel, forward and backward, and raise for `fast=False`; other
-    devices raise."""
+    devices, and a DTensor operand, raise."""
+    refuse_dtensor("conv3x3_ln_act", x, w, ln_scale, ln_bias, residual)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"conv3x3_ln_act: no kernel for device {x.device}")
     if act not in _ACTS:

@@ -51,6 +51,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch._build import refuse_dtensor
+
 _HEADS = (2, 4, 8, 16, 32)
 
 
@@ -364,7 +366,9 @@ def ref_attn_diffusion(a: torch.Tensor, w: torch.Tensor,
     """a (B, P, R, H), w (3, 3, H, H), b (H,) -> diffused a in a's dtype,
     differentiable, through the custom op. CPU tensors take the plain
     version; CUDA tensors launch the kernel; others raise (the op's fake
-    implementation would otherwise answer for a meta tensor)."""
+    implementation would otherwise answer for a meta tensor), as does a
+    DTensor operand."""
+    refuse_dtensor("ref_attn_diffusion", a, w, b)
     if a.device.type not in ("cpu", "cuda"):
         raise ValueError(f"ref_attn_diffusion: no kernel for device "
                          f"{a.device}")

@@ -1,9 +1,10 @@
-"""Data parallelism over `torch.distributed`.
+"""Data and tensor parallelism over `torch.distributed`.
 
 The port of `gwdepth_tpu/parallel/mesh.py`. The JAX package partitions
-one program over a `("data",)` mesh: the batch is sharded over the axis,
-and the loss and its gradient are those of the whole (global) batch. The
-port runs one process per rank, launched by `torchrun`, each on its
+one program over a `("data",)` or `("data", "model")` mesh: the batch is
+sharded over `data`, some weights over `model` (`partition.py`), and the
+loss and its gradient are those of the whole (global) batch. The port
+runs one process per rank, launched by `torchrun`, each on its
 contiguous part of every global batch:
 
 - `setup` joins torchrun's process group (its `RANK`, `WORLD_SIZE`,
@@ -11,8 +12,15 @@ contiguous part of every global batch:
   on `cuda:LOCAL_RANK`; gloo on the CPU. Without that environment there
   is one rank, no process group, and every collective below is the
   identity.
-- `make_mesh(shape)` resolves -1 to the world and refuses a second
-  (`model`) axis: tensor parallelism (`partition.py`) is not ported.
+- `make_mesh(shape)` resolves -1 to the world. A `(D, M)` mesh lays the
+  ranks out row-major, rank = d * M + m, as the JAX mesh lays out its
+  devices: the M ranks of data coordinate d (a model group) hold the
+  same images and compute the same loss, each with its 1/M shards of
+  the weights that `partition.py` splits; the D ranks of model
+  coordinate m (a data group) hold the same shards. So every sum over
+  images (`share`, `all_sum`, `sum_`, `sum_host`, `all_reduce_grads`,
+  `gather`) runs over this rank's data group: over the world it would
+  count each image M times. `broadcast_` still reaches the world.
 - `DataMesh.all_sum` is the differentiable sum over ranks that the losses
   take as their reducer. Its backward is the identity: every rank computes
   the same (global) loss from the sums, so rank r's gradient is that
@@ -86,25 +94,30 @@ def teardown() -> None:
         dist.destroy_process_group()
 
 
-def _comm_device(t: torch.Tensor) -> torch.device:
-    """Where a collective on `t` runs: NCCL takes only CUDA tensors."""
-    if dist.get_backend() == "nccl" and t.device.type != "cuda":
+def _comm_device(t: torch.Tensor, reduces: bool = True) -> torch.device:
+    """Where a collective on `t` runs: NCCL takes only CUDA tensors; gloo
+    takes CUDA tensors for `all_reduce` and `broadcast` only (`reduces`),
+    so its gathers of CUDA tensors go through the host."""
+    backend = dist.get_backend()
+    if backend == "nccl" and t.device.type != "cuda":
         return torch.device("cuda", torch.cuda.current_device())
+    if backend == "gloo" and not reduces and t.device.type == "cuda":
+        return torch.device("cpu")
     return t.device
 
 
 class _AllSum(torch.autograd.Function):
-    """Sum over ranks, identity backward (see the module docstring)."""
+    """Sum over a group, identity backward (see the module docstring)."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
         y = x.contiguous().clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        return g
+        return g, None
 
 
 def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
@@ -126,43 +139,80 @@ def _buckets(tensors: Sequence[torch.Tensor]) -> List[List[torch.Tensor]]:
 
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
-    """A one-axis `data` mesh of `world` ranks; this process is `rank`.
+    """A `data` mesh of `world` ranks, or a `(data, model)` mesh of
+    `shape` (D, M) with D * M = `world`; this process is `rank`.
     `distributed` is False for one process without a process group,
-    where every collective is the identity."""
+    where every collective is the identity. `data_group` and
+    `model_group` are this rank's groups of a two-axis mesh (None: the
+    world, and no model group)."""
     shape: Tuple[int, ...]
     axes: Tuple[str, ...]
     rank: int
     world: int
     distributed: bool
+    data_group: Optional[object] = None
+    model_group: Optional[object] = None
 
     @property
     def is_main(self) -> bool:
         return self.rank == 0
 
+    @property
+    def data_size(self) -> int:
+        return self.shape[0]
+
+    @property
+    def model_size(self) -> int:
+        return self.shape[1] if len(self.shape) > 1 else 1
+
+    @property
+    def data_rank(self) -> int:
+        return self.rank // self.model_size
+
+    @property
+    def model_rank(self) -> int:
+        return self.rank % self.model_size
+
     def share(self, n: int) -> slice:
-        """This rank's contiguous part of a global batch of `n`."""
-        if n % self.world:
+        """This rank's contiguous part of a global batch of `n`: its data
+        coordinate's."""
+        if n % self.data_size:
             raise ValueError(f"a batch of {n} does not split over "
-                             f"{self.world} ranks")
-        b = n // self.world
-        return slice(self.rank * b, (self.rank + 1) * b)
+                             f"{self.data_size} ranks")
+        b = n // self.data_size
+        return slice(self.data_rank * b, (self.data_rank + 1) * b)
 
     def all_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The differentiable sum of `t` over ranks (identity backward)."""
-        return _AllSum.apply(t) if self.distributed else t
+        """The differentiable sum of `t` over the data group (identity
+        backward)."""
+        return _AllSum.apply(t, self.data_group) if self.distributed else t
 
-    def sum_(self, t: torch.Tensor) -> torch.Tensor:
-        """Sum `t` over ranks in place (no autograd); returns `t`."""
+    def _sum_(self, t: torch.Tensor, group) -> torch.Tensor:
         if self.distributed:
             dev = _comm_device(t)
             if dev == t.device:
-                dist.all_reduce(t)
+                dist.all_reduce(t, group=group)
             else:
-                t.copy_(self.sum_(t.to(dev)).to(t.device))
+                t.copy_(self._sum_(t.to(dev), group).to(t.device))
         return t
 
+    def sum_(self, t: torch.Tensor) -> torch.Tensor:
+        """Sum `t` over the data group in place (no autograd); returns
+        `t`."""
+        return self._sum_(t, self.data_group)
+
+    def model_all_gather(self, t: torch.Tensor) -> List[torch.Tensor]:
+        """Every model rank's `t`, in model-rank order (no autograd)."""
+        if self.model_size == 1:
+            return [t]
+        dev = _comm_device(t, reduces=False)
+        src = t.detach().contiguous().to(dev)
+        out = [torch.empty_like(src) for _ in range(self.model_size)]
+        dist.all_gather(out, src, group=self.model_group)
+        return [o.to(t.device) for o in out]
+
     def sum_host(self, values) -> np.ndarray:
-        """Sum a float64 host array over ranks."""
+        """Sum a float64 host array over the data group."""
         t = torch.as_tensor(np.asarray(values, np.float64)).clone()
         return self.sum_(t).numpy()
 
@@ -186,8 +236,9 @@ class DataMesh:
                     t.copy_(piece.view_as(t))
 
     def all_reduce_grads(self, params: Sequence[torch.Tensor]) -> None:
-        """Sum every parameter's `.grad` over ranks, bucketed (one
-        `all_reduce` a bucket). Every rank must hold a gradient for each
+        """Sum every parameter's `.grad` over the data group, bucketed (one
+        `all_reduce` a bucket); a sharded parameter's over the ranks that
+        hold the same shard. Every rank must hold a gradient for each
         parameter (`TrainState.apply_gradients` fills the missing ones)."""
         if not self.distributed:
             return
@@ -200,26 +251,59 @@ class DataMesh:
                 g.copy_(piece.view_as(g))
 
     def gather(self, obj) -> Optional[list]:
-        """Every rank's `obj`, in rank order, on rank 0 (None elsewhere)."""
+        """Every data rank's `obj`, in data-rank order, on rank 0 (None
+        elsewhere): the data group of model coordinate 0 gathers; the
+        other model coordinates hold the same objects and send none."""
         if not self.distributed:
             return [obj]
-        out = [None] * self.world if self.is_main else None
-        dist.gather_object(obj, out, dst=0)
+        if self.model_rank:
+            return None
+        out = [None] * self.data_size if self.is_main else None
+        dist.gather_object(obj, out, dst=0, group=self.data_group)
         return out
+
+
+def resolve_shape(shape: Sequence[int], world: int) -> Tuple[int, ...]:
+    """`shape` with its -1 entry (at most one) resolved so that the
+    entries multiply to `world`; raises where they cannot."""
+    shape = tuple(int(s) for s in shape)
+    known = int(np.prod([s for s in shape if s != -1]))
+    if shape.count(-1) > 1 or known < 1 or any(s < -1 or s == 0
+                                               for s in shape):
+        raise ValueError(f"mesh {shape}: positive sizes and at most one -1")
+    if -1 in shape:
+        if world % known:
+            raise ValueError(f"mesh {shape}: {known} does not divide the "
+                             f"world of {world} (torchrun --nproc_per_node)")
+        shape = tuple(world // known if s == -1 else s for s in shape)
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {shape}: {int(np.prod(shape))} ranks, but "
+                         f"the world has {world} (torchrun --nproc_per_node)")
+    return shape
 
 
 def make_mesh(shape: Sequence[int] = (-1,),
               axes: Sequence[str] = ("data",)) -> DataMesh:
-    """The data mesh over the process group (`setup` first, under
-    torchrun). A -1 entry is the world size; the size must equal it."""
-    shape, axes = tuple(int(s) for s in shape), tuple(axes)
-    if len(shape) > 1 or axes[:1] != ("data",):
-        raise ValueError(f"mesh {shape} over {axes}: only a one-axis data "
-                         "mesh is ported (tensor parallelism, "
-                         "partition.py, is not)")
+    """The `data` or `(data, model)` mesh over the process group (`setup`
+    first, under torchrun). A -1 entry takes the rest of the world; the
+    sizes must multiply to it. A two-axis mesh makes its groups here, on
+    every rank in one order (the process-group rule)."""
+    axes = tuple(axes)
+    if len(shape) > 2 or axes != ("data", "model")[:len(shape)]:
+        raise ValueError(f"mesh {tuple(shape)} over {axes}: the axes are "
+                         "('data',) or ('data', 'model')")
     world = world_size()
-    size = world if shape[0] == -1 else shape[0]
-    if size != world:
-        raise ValueError(f"mesh {shape}: {size} ranks, but the world has "
-                         f"{world} (torchrun --nproc_per_node)")
-    return DataMesh((size,), axes[:1], rank(), world, dist.is_initialized())
+    shape = resolve_shape(shape, world)
+    data_group = model_group = None
+    if len(shape) == 2 and dist.is_initialized():
+        D, M = shape
+        for m in range(M):
+            g = dist.new_group([d * M + m for d in range(D)])
+            if m == rank() % M:
+                data_group = g
+        for d in range(D):
+            g = dist.new_group([d * M + m for m in range(M)])
+            if d == rank() // M:
+                model_group = g
+    return DataMesh(shape, axes, rank(), world, dist.is_initialized(),
+                    data_group, model_group)

@@ -19,6 +19,13 @@ rank 0's parameters and buffers, so every rank starts from the same
 state, and `apply_gradients` sums the gradients over ranks (one
 `all_reduce` a bucket) before it clips, so the clip sees the global
 gradient and every rank takes the same step.
+
+Tensor parallel (a `(D, M)` mesh): after the broadcast
+`create_train_state` keeps each rank's shards of the weights that
+`partition.spec_for` splits (`place_params`), so AdamW's moments are
+shards too; the gradients are summed over the data group, and the clip's
+global norm counts each shard once: it is the one-process norm of the
+gradients, the split ones gathered whole (`clip_grad_norm_`).
 """
 
 from __future__ import annotations
@@ -31,6 +38,8 @@ import torch.nn as nn
 
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.parallel.mesh import DataMesh, make_mesh
+from gwdepth_tpu_torch.parallel.partition import (place_params, placed,
+                                                  unshard)
 
 
 def param_group_label(name: str, param: nn.Parameter) -> str:
@@ -51,6 +60,29 @@ def param_groups(model: nn.Module, cfg: GWDepthConfig) -> List[Dict]:
     return [{"params": groups["main"], "lr": cfg.lr, "name": "main"},
             {"params": groups["backbone"], "lr": cfg.lr_backbone,
              "name": "backbone"}]
+
+
+def clip_grad_norm_(params: List[nn.Parameter], max_norm: float,
+                    model: nn.Module) -> torch.Tensor:
+    """`torch.nn.utils.clip_grad_norm_(params, max_norm)`, also where
+    `model`'s split weights (`place_params`) hold shards of `params`: the
+    shards' gradients are gathered whole for the norm, which torch's own
+    `get_total_norm` then takes over the one-process list of gradients,
+    so every rank scales by the one-process factor, bit for bit. (A sum
+    of the shards' squares over the model group counts each shard once
+    too, but in another order: the last-bit change of the factor moved
+    later steps of the `use_pallas` model by bf16 rounding flips.)
+    Returns the norm."""
+    pl = placed(model)
+    if pl is None:
+        return torch.nn.utils.clip_grad_norm_(params, max_norm)
+    index = {id(p): n for n, p in zip(pl.names, pl.params)}
+    full = unshard(model, {index[id(p)]: p.grad for p in params
+                           if id(p) in index})
+    total = torch.nn.utils.get_total_norm(
+        [full[index[id(p)]] if id(p) in index else p.grad for p in params])
+    torch.nn.utils.clip_grads_with_norm_(params, max_norm, total)
+    return total
 
 
 def lr_factor(step: int, steps_per_epoch: int, lr_drop: int) -> float:
@@ -83,7 +115,7 @@ class TrainState:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.mesh.all_reduce_grads(params)
-        torch.nn.utils.clip_grad_norm_(params, self.max_norm)
+        clip_grad_norm_(params, self.max_norm, self.model)
         self.optimizer.step()
         self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
@@ -92,12 +124,17 @@ class TrainState:
 
 def create_train_state(cfg: GWDepthConfig, model: nn.Module,
                        steps_per_epoch: int = 1000,
-                       mesh: Optional[DataMesh] = None) -> TrainState:
+                       mesh: Optional[DataMesh] = None,
+                       shard: bool = True) -> TrainState:
     """The train state of `model` on `mesh` (default: this process's,
     `make_mesh()`); over several ranks rank 0's parameters and buffers
-    overwrite every other rank's first."""
+    overwrite every other rank's first. On a mesh with a model axis each
+    rank then keeps its shards (`place_params`) unless `shard` is False
+    (`--eval`, which runs on replicated weights as the JAX CLI's)."""
     mesh = make_mesh() if mesh is None else mesh
     mesh.broadcast_([*model.parameters(), *model.buffers()])
+    if shard:
+        place_params(model, mesh)
     opt = torch.optim.AdamW(param_groups(model, cfg), lr=cfg.lr,
                             betas=(0.9, 0.999), eps=1e-8,
                             weight_decay=cfg.weight_decay)

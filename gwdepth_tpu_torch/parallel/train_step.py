@@ -22,6 +22,12 @@ each rank splits its part strided, which is the global strided split
 when the local batch is a multiple of A (as in the JAX step, where the
 strided microbatches stay spread over the `data` shards).
 
+Tensor parallel (a `(D, M)` mesh): the M ranks of a data coordinate step
+on the same part of the batch, the reducer sums over the data group, and
+each forward and its backward run inside `partition.gathered`, so the
+model reads its split weights whole and their gradients land on the
+shards.
+
 eval step = forward (eval mode) -> 9 depth error sums + count over the
 GT-valid mask, a 2x2 seg confusion matrix and the per-image line losses,
 as device tensors the caller sums over the split (and over ranks).
@@ -45,6 +51,7 @@ from gwdepth_tpu_torch.losses import (identity, line_set_criterion,
                                       multiscale_depth_loss, plane_norm_loss,
                                       seg_ce_loss)
 from gwdepth_tpu_torch.losses.criterion import Reducer
+from gwdepth_tpu_torch.parallel.partition import gathered
 from gwdepth_tpu_torch.parallel.train_state import TrainState
 
 
@@ -105,9 +112,10 @@ def make_train_step(cfg: GWDepthConfig) -> Callable:
 
     def loss_and_backward(model, batch: Batch, generator, scale: float,
                           reduce: Reducer):
-        outputs = model(batch.images, batch.valid, generator=generator)
-        loss, logs = compute_losses(cfg, outputs, batch, reduce)
-        (loss * scale).backward()
+        with gathered(model):
+            outputs = model(batch.images, batch.valid, generator=generator)
+            loss, logs = compute_losses(cfg, outputs, batch, reduce)
+            (loss * scale).backward()
         if not log_keys:
             # sorted, as the JAX step's keys come out of its pytree
             log_keys.extend(sorted(logs))
@@ -188,7 +196,8 @@ def make_eval_step(cfg: GWDepthConfig, return_dense: bool = False
     @torch.no_grad()
     def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
         model.eval()
-        outputs = model(batch.images, batch.valid)
+        with gathered(model):
+            outputs = model(batch.images, batch.valid)
         res: Dict[str, torch.Tensor] = {}
         # all-invalid images pad the last batch and count nowhere
         img_ok = batch.valid.any(dim=2).any(dim=1)

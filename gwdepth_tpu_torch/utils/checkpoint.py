@@ -8,7 +8,11 @@ original's `.pth` loads here (weights only). Writes go to a temporary
 file first and are renamed into place, so a cut run never leaves half a
 checkpoint. Over data-parallel ranks, whose states are equal, rank 0
 writes and the others wait at a barrier until the file is there; every
-rank restores.
+rank restores. On a `(data, model)` mesh every rank first takes part in
+gathering the split weights and their AdamW moments whole
+(`partition.full_state_dict`, `full_optimizer_state`), so the file is
+the one-process checkpoint; a restore cuts each rank's shards from it,
+whichever mesh wrote it.
 """
 
 from __future__ import annotations
@@ -18,6 +22,11 @@ import os
 from typing import Optional
 
 import torch
+
+from gwdepth_tpu_torch.parallel.partition import (full_optimizer_state,
+                                                  full_state_dict, placed,
+                                                  shard_optimizer_state,
+                                                  shard_state_dict)
 
 ROLLING = "checkpoint.pth"
 
@@ -37,19 +46,23 @@ class CheckpointManager:
         if (epoch + 1) % self.save_freq == 0:
             paths.append(os.path.join(self.directory,
                                       f"checkpoint{epoch:04}.pth"))
-        if mesh.is_main:
-            self._write(epoch, state, config, paths)
+        split = placed(state.model) is not None
+        if mesh.is_main or split:
+            # the gathers of a split model are collectives: every rank
+            payload = {"model": full_state_dict(state.model),
+                       "optimizer": full_optimizer_state(state.model,
+                                                         state.optimizer),
+                       "lr_scheduler": state.scheduler.state_dict(),
+                       "epoch": epoch, "step": state.step,
+                       "args": (dataclasses.asdict(config)
+                                if config is not None else None)}
+            if mesh.is_main:
+                self._write(payload, paths)
         mesh.barrier()
         return paths[0]
 
     @staticmethod
-    def _write(epoch: int, state, config, paths) -> None:
-        payload = {"model": state.model.state_dict(),
-                   "optimizer": state.optimizer.state_dict(),
-                   "lr_scheduler": state.scheduler.state_dict(),
-                   "epoch": epoch, "step": state.step,
-                   "args": (dataclasses.asdict(config)
-                            if config is not None else None)}
+    def _write(payload: dict, paths) -> None:
         for path in paths:
             tmp = f"{path}.tmp{os.getpid()}"
             torch.save(payload, tmp)
@@ -78,7 +91,7 @@ def restore_file(state, path: str, params_only: bool = False) -> int:
     from gwdepth_tpu_torch.predict import _normalize_keys
 
     raw = torch.load(path, map_location="cpu", weights_only=False)
-    sd = _normalize_keys(raw.get("model", raw))
+    sd = shard_state_dict(state.model, _normalize_keys(raw.get("model", raw)))
     res = state.model.load_state_dict(sd, strict=False)
     missing = [k for k in res.missing_keys
                if not k.endswith("relative_position_index")]
@@ -87,7 +100,8 @@ def restore_file(state, path: str, params_only: bool = False) -> int:
                        f"e.g. {missing[:5]}")
     if params_only or "optimizer" not in raw:
         return 0
-    state.optimizer.load_state_dict(raw["optimizer"])
+    state.optimizer.load_state_dict(shard_optimizer_state(
+        state.model, state.optimizer, raw["optimizer"]))
     state.scheduler.load_state_dict(raw["lr_scheduler"])
     state.step = int(raw.get("step", 0))
     return int(raw["epoch"]) + 1

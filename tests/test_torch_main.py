@@ -113,8 +113,12 @@ def test_main_flags_and_defaults_match_jax():
 @pytest.mark.parametrize("flag", [
     ["--mesh", "4,2"], ["--mesh", "1,2"], ["--pre_norm"]])
 def test_main_refuses_what_the_port_lacks(tmp_path, flag):
-    """A two-axis mesh (tensor parallelism) and `--pre_norm`."""
-    with pytest.raises(SystemExit, match="not supported by the PyTorch port"):
+    """`--pre_norm`, which the port lacks; and a two-axis mesh (tensor
+    parallelism, which runs under torchrun) of more ranks than one
+    process without torchrun has."""
+    match = ("not supported by the PyTorch port" if flag == ["--pre_norm"]
+             else "tensor parallelism spans the torchrun world, 1 rank")
+    with pytest.raises(SystemExit, match=match):
         pmain.main(_args(tmp_path, tmp_path / "o", *flag))
 
 

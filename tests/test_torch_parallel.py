@@ -1,14 +1,17 @@
 """Data parallelism of the port (`parallel/mesh.py`) on two gloo ranks on
 the CPU, against the JAX package's step on a 2-device `data` mesh and
-against the port in one process.
+against the port in one process; tensor parallelism
+(`parallel/partition.py`) on a `(1, 2)` and a `(2, 2)` mesh.
 
 Two worker groups of W = 2 processes (`tests/torch_parallel_worker.py`,
 torchrun's environment set by hand, one torch thread each, importing only
 the port) start first: `lib` drives the library, `cli` the two CLIs; a
 third worker, `one`, runs the training CLI in one process without
-torchrun. Meanwhile this process computes the JAX side on conftest's
-virtual devices (`make_mesh((2,), ("data",))`; the two meshed train
-steps, two programs, compile at once in two threads). Every rank takes its contiguous part of each global batch.
+torchrun; `tp` (2 ranks, a `(1, 2)` mesh) drives tensor parallelism
+through the library and `main.main --mesh 1,2`, and `tp4` (4 ranks, a
+`(2, 2)` mesh) a toy module. All start at once. Meanwhile this process computes the JAX side on conftest's
+virtual devices (`make_mesh((2,), ("data",))`; of the two meshed train
+steps, two programs, one runs in a spawned process). Every rank takes its contiguous part of each global batch.
 
 Tolerances:
   - `compute_losses` on 1 image a rank against JAX's on the 2-image batch:
@@ -27,15 +30,25 @@ Tolerances:
   - `evaluate` against one process: metrics 1e-6 relative, line dumps
     1e-5; `main.main`'s first epoch (one step) 1e-6 relative; predict's
     depth `.npy` 1e-6 against one process at the ranks' batch size.
+  - tensor parallel on `(1, 2)`, both ranks on the whole batch, against
+    one process: losses 1e-6 relative, the first gradients before the
+    clip within 1e-6 of the largest, the parameters after N_STEPS within
+    1e-6 x max(1, |w|), with and without `use_pallas` (the clip takes
+    the one-process norm, so the runs agree bit for bit on the CPU);
+    against JAX's meshed step at the data-parallel test's bounds; the
+    CLI's log.txt at 1e-6 relative; on `(2, 2)`, the toy's losses and
+    clip norms at 1e-6 relative, its gradients within 1e-6 of the
+    largest and its parameters within 1e-2 lr after 2 steps.
 """
 
 import json
 import os
 import shutil
-import socket
 import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
+import time
+import multiprocessing as mp
+from concurrent.futures import ProcessPoolExecutor
 from pathlib import Path
 
 import jax
@@ -65,28 +78,31 @@ from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_train import _jax_adam_mu
 from torch_parallel_worker import (FOCAL, N_STEPS, PLANE, FakeDS, cli_args,
                                    fake_outputs, loader_batches,
-                                   losses_and_grads, model_for, predict_args)
+                                   losses_and_grads, mlp_for, mlp_input,
+                                   model_for, predict_args)
 
 ROOT = Path(__file__).resolve().parent.parent
 WORKER = Path(__file__).resolve().parent / "torch_parallel_worker.py"
 W = 2
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("127.0.0.1", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
+# every worker group's processes end within this many seconds of their
+# start (the fixture's setup alone took 141 s on an idle 8-core machine);
+# a rank that cannot meet the others stops itself after the worker's
+# JOIN_S, a stuck collective after COLLECTIVE_S
+DEADLINE_S = 480
+MODES = {"lib": W, "cli": W, "one": 1, "tp": 2, "tp4": 4}
 
 
 def _spawn(mode, out, root, world=W):
     """`world` worker processes of `mode`; one alone runs without
-    torchrun's environment, as a plain one-process run."""
+    torchrun's environment, as a plain one-process run. Rank 0 of a group
+    picks the rendezvous port itself (the worker's `join`), so no port
+    chosen here can be taken by another process before the ranks meet."""
     env = dict(os.environ, OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="",
                PYTHONPATH=str(ROOT))
     if world > 1:
-        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()),
+        env.update(MASTER_ADDR="127.0.0.1", MASTER_PORT="0",
                    WORLD_SIZE=str(world))
     procs = []
     for r in range(world):
@@ -98,9 +114,9 @@ def _spawn(mode, out, root, world=W):
     return procs
 
 
-def _wait(procs, mode, out):
+def _wait(procs, mode, out, deadline):
     for p in procs:
-        p.wait(timeout=900)
+        p.wait(timeout=max(deadline - time.monotonic(), 1.0))
     for r, p in enumerate(procs):
         assert p.returncode == 0, (out / f"{mode}{r}.log").read_text()[-6000:]
     return [json.loads((out / f"{mode}{r}.json").read_text())
@@ -121,6 +137,13 @@ def _jax_losses(kw):
     _, logs = jax.jit(lambda o, b: jstep.compute_losses(jcfg, o, b))(
         out, batch)
     return {k: float(v) for k, v in logs.items()}
+
+
+def _jax_cpu():
+    """A spawned process's JAX on conftest's 8 virtual CPU devices (its
+    XLA_FLAGS are inherited; the platform is set before any backend
+    starts, as conftest sets it)."""
+    jax.config.update("jax_platforms", "cpu")
 
 
 def _jax_trajectory(use_pallas):
@@ -156,20 +179,21 @@ def dp(tmp_path_factory):
     (root / "rgb_val").mkdir()
     for name in (root / "val.txt").read_text().split():
         shutil.copy(root / "rgb" / f"{name}.png", root / "rgb_val")
-    outs = {m: tmp_path_factory.mktemp(m) for m in ("lib", "cli", "one")}
-    procs = {m: _spawn(m, outs[m], root, 1 if m == "one" else W)
-             for m in ("lib", "cli", "one")}
+    outs = {m: tmp_path_factory.mktemp(m) for m in MODES}
+    deadline = time.monotonic() + DEADLINE_S
+    procs = {m: _spawn(m, outs[m], root, n) for m, n in MODES.items()}
     try:
         # the two meshed JAX steps (use_pallas off and on) are two
-        # programs; XLA compiles them at once in two threads
-        with ThreadPoolExecutor(2) as pool:
-            trajectories = {up: pool.submit(_jax_trajectory, up)
-                            for up in (False, True)}
+        # programs, traced and compiled at once: the second in a process
+        # of its own, as the tracing holds the interpreter's lock
+        with ProcessPoolExecutor(1, mp_context=mp.get_context("spawn"),
+                                 initializer=_jax_cpu) as pool:
+            other = pool.submit(_jax_trajectory, True)
             jax_side = {"losses": {n: _jax_losses(kw) for n, kw in (
                 ("ce_plane", PLANE), ("focal", FOCAL))}}
-            jax_side["train"] = {up: f.result()
-                                 for up, f in trajectories.items()}
-        res = {m: _wait(procs[m], m, outs[m]) for m in ("lib", "cli", "one")}
+            jax_side["train"] = {False: _jax_trajectory(False),
+                                 True: other.result()}
+        res = {m: _wait(procs[m], m, outs[m], deadline) for m in MODES}
     finally:
         for p in (p for ps in procs.values() for p in ps):
             if p.poll() is None:
@@ -370,6 +394,148 @@ def test_evaluate_over_ranks_matches_one_process(dp):
 
 
 # ---------------------------------------------------------------------------
+# tensor parallelism
+# ---------------------------------------------------------------------------
+
+def _tp_train(dp, up):
+    return torch.load(dp["outs"]["tp"] / f"tp_train_{up}.pt",
+                      weights_only=False)
+
+
+def test_split_mlp_matches_the_replicated_one(dp):
+    """`linear1` split by output features and `linear2` by input features
+    over 2 gloo ranks, gathered at use: the replicated MLP's output (the
+    port's `test_partition.py::test_place_params_and_matmul_semantics`)."""
+    with torch.no_grad():
+        want = mlp_for()(mlp_input()).numpy()
+    for r in range(2):
+        got = dp["tp"][r]["mlp"]
+        assert got["shards"] == {
+            "linear1.weight": [8, 8], "linear1.bias": [16],
+            "linear2.weight": [4, 8], "linear2.bias": [4],
+            "norm.weight": [4], "norm.bias": [4]}
+        np.testing.assert_allclose(np.asarray(got["y"]), want, rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("use_pallas", [False, True])
+def test_tensor_parallel_steps_match_one_process_and_jax(dp, use_pallas):
+    """N_STEPS of the train step on a (1, 2) mesh, each rank on the whole
+    2-image batch with half of every split weight, against the port's one
+    process on that batch and JAX's step on a 2-device data mesh; each
+    split tensor and its AdamW moments are half of the full size on each
+    rank."""
+    run = _tp_train(dp, use_pallas)
+    one = _train(dp, use_pallas)["one"]
+    jrun = dp["jax"]["train"][use_pallas]
+    cfg = tiny_test_config(use_pallas=use_pallas)
+    for r in range(2):
+        np.testing.assert_array_equal(
+            dp["tp"][r][f"train_{use_pallas}"]["logs"], run["logs"])
+    assert run["keys"] == one["keys"] == jrun["keys"]
+    _check_logs(run["logs"], one["logs"], 1e-6)
+    _check_grads(run["grads"], one["grads"], 1e-6)
+    assert set(run["params"]) == set(one["params"])
+    for n, w in one["params"].items():
+        gap = (run["params"][n].double() - w.double()).abs()
+        assert bool((gap <= 1e-6 * w.double().abs().clamp(min=1.0)).all()), n
+    _check_logs(run["logs"], jrun["logs"],
+                BF16_TAP_TOL if use_pallas else 1e-5)
+    _check_grads(run["mu"], jrun["mu"], 1e-4)
+    _check_params(run["params"], jrun["params"], cfg, N_STEPS)
+    sizes = dp["tp"][0][f"train_{use_pallas}"]["sizes"]
+    assert len(sizes) > 100
+    for n, (full, local, moment) in sizes.items():
+        assert 2 * local == full and moment in (local, None), n
+    assert any(m is not None for _, _, m in sizes.values())
+
+
+def test_two_axis_mesh_counts_each_image_and_shard_once(dp):
+    """A (2, 2) mesh of 4 ranks: each data coordinate's contiguous half
+    of the batch on both its model ranks; sums, meters and gathers over
+    the data group only; the toy's two steps (losses, gradients before
+    the clip, the clip's norm, parameters) against one process on the
+    whole batch."""
+    res = dp["tp4"]
+    for r, x in enumerate(res):
+        d = r // 2
+        assert (x["data_rank"], x["model_rank"]) == (d, r % 2)
+        assert x["share"] == [2 * d, 2 * d + 2]
+        assert x["loader"] == [[[f"s{2 * d}", f"s{2 * d + 1}"],
+                                [2.0 * d + 1, 2.0 * d + 2], [True, True]]]
+        assert x["sum_host"] == [3.0] and x["meter"] == [2, 5.0]
+        assert x["tp"]["local"]["linear1.weight"] == [8, 8]
+        assert x["tp"]["local"]["linear2.weight"] == [4, 8]
+        assert x["tp"]["losses"] == res[0]["tp"]["losses"]
+    assert res[0]["gather"] == [["obj", 0, 0], ["obj", 1, 0]]
+    assert all(x["gather"] is None for x in res[1:])
+    tp, one = res[0]["tp"], res[0]["one"]
+    np.testing.assert_allclose(tp["losses"], one["losses"], rtol=1e-6)
+    np.testing.assert_allclose(tp["norms"], one["norms"], rtol=1e-6)
+    # the clip is active: the norm is above the configured 0.05
+    assert min(one["norms"]) > 0.05
+    for got, want in zip(tp["grads"], one["grads"]):
+        top = max(np.abs(np.asarray(v)).max() for v in want.values())
+        for n, w in want.items():
+            np.testing.assert_allclose(np.asarray(got[n]), np.asarray(w),
+                                       rtol=0, atol=1e-6 * top, err_msg=n)
+    lr = tiny_test_config(lr=1e-2).lr
+    for n, w in one["params"].items():
+        np.testing.assert_allclose(np.asarray(tp["params"][n]),
+                                   np.asarray(w), rtol=0, atol=1e-2 * lr,
+                                   err_msg=n)
+
+
+def test_main_tensor_parallel_logs_and_checkpoints_as_one_process(dp):
+    """`main.main --mesh 1,2` (2 epochs, the second after `--resume`):
+    the one-process log.txt; its checkpoint holds whole tensors and
+    restores in one process to the ranks' gathered weights; restored on
+    the split mesh (`--resume`) it gives them back, and a one-process
+    checkpoint restored there gives back its weights and AdamW moments."""
+    got = _log(dp["outs"]["tp"] / "exp" / "log.txt")
+    want = _log(dp["outs"]["one"] / "exp" / "log.txt")
+    assert [l["epoch"] for l in got] == [l["epoch"] for l in want] == [0, 1]
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+        for k, v in w.items():
+            np.testing.assert_allclose(g[k], v, rtol=1e-6, err_msg=k)
+    for x in dp["tp"]:
+        assert x["cli_step"] == 2 and x["resume_epoch"] == 2
+        assert x["resume_equal"] and x["resume_local_shapes"]
+        assert x["solo_epoch"] == 1 and x["solo_params_equal"]
+        assert x["solo_moments_equal"]
+    from gwdepth_tpu_torch.parallel import create_train_state
+    from gwdepth_tpu_torch.utils.checkpoint import restore_file
+
+    ckpt = dp["outs"]["tp"] / "exp" / "checkpoints" / "checkpoint.pth"
+    cfg = pmain.config_from_args(pmain.build_argparser().parse_args(
+        cli_args(dp["root"], "unused")))
+    state = create_train_state(cfg, model_for(cfg))
+    assert restore_file(state, str(ckpt)) == 2 and state.step == 2
+    final = torch.load(dp["outs"]["tp"] / "tp_cli_params.pt",
+                       weights_only=False)
+    params = dict(state.model.named_parameters())
+    assert set(final) == set(params)
+    for n, p in params.items():
+        assert torch.equal(p.detach(), final[n]), n
+    split = set(dp["tp"][0]["split_names"])
+    moments = {n: state.optimizer.state[p]["exp_avg"]
+               for n, p in params.items() if p in state.optimizer.state}
+    assert split & set(moments)
+    for n in split & set(moments):
+        assert moments[n].shape == params[n].shape, n
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_kernels_refuse_a_dtensor(dp, kernel):
+    """K1's and K2's entries raise on a DTensor weight, on either rank,
+    rather than take any path with it."""
+    for x in dp["tp"]:
+        msg = x["guard"][kernel]
+        assert msg is not None and "DTensor" in msg, msg
+
+
+# ---------------------------------------------------------------------------
 # the CLIs
 # ---------------------------------------------------------------------------
 
@@ -448,7 +614,7 @@ def test_predict_resume_refuses_an_orbax_directory(dp, tmp_path):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "1"], "spans the torchrun world, 2"),
     (["--mesh", "4"], "spans the torchrun world, 2"),
-    (["--mesh", "2,1"], "tensor parallelism"),
+    (["--mesh", "2,2"], "tensor parallelism"),
     (["--mesh", "2", "--batch_size", "3"], "--batch_size 3 must be a "
                                            "multiple of the 2 ranks"),
     (["--eval_batch_size", "1"], "--eval_batch_size 1 must be a multiple"),

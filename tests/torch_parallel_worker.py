@@ -3,7 +3,7 @@
 Run with torchrun's environment (`RANK`, `WORLD_SIZE`, `LOCAL_RANK`,
 `MASTER_ADDR`, `MASTER_PORT`), or for `one` without it, as
 
-    python tests/torch_parallel_worker.py lib|cli|one OUT_DIR DATA_ROOT
+    python tests/torch_parallel_worker.py lib|cli|one|tp|tp4 OUT_DIR DATA_ROOT
 
 Run as a script it imports only the port: the JAX packages are blocked
 before anything else is imported (the test imports its helpers). `lib` drives the library (loader shares, meters,
@@ -11,8 +11,17 @@ checkpoint, `compute_losses`, the train step with and without
 `use_pallas`, `grad_accum`, `evaluate`), rank 0 also the one-process
 references; `cli` drives `main.main` (an epoch, then `--resume`) and
 `predict.main --mesh 2`; `one` drives `main.main` in one process, the
-reference of `cli`. Each rank writes `{mode}{rank}.json`; rank 0
-writes the train runs' tensors to `{mode}_*.pt`.
+reference of `cli`. `tp` (2 ranks, a `(1, 2)` mesh) drives tensor
+parallelism: a column- then row-split MLP, the train step with and
+without `use_pallas`, `main.main --mesh 1,2` and its checkpoints, and
+the DTensor guard of K1 and K2; `tp4` (4 ranks, a `(2, 2)` mesh) a toy
+module's shares, sums, gradients and clip. Each rank writes
+`{mode}{rank}.json`; rank 0 writes the train runs' tensors to `*.pt`.
+
+The ranks meet without a fixed port: rank 0 opens the rendezvous store
+on a port the system picks and writes it to `OUT_DIR/port`, where the
+others read it (`join`); the store, the wait for the file and every
+collective have their own time limits.
 """
 
 import sys
@@ -21,13 +30,17 @@ if __name__ == "__main__":
     for _name in ("jax", "jaxlib", "flax", "optax", "orbax", "gwdepth_tpu"):
         sys.modules[_name] = None            # any import of them raises
 
+import datetime  # noqa: E402
 import json  # noqa: E402
 import os  # noqa: E402
+import time  # noqa: E402
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 N_STEPS = 3
+JOIN_S = 120              # the rendezvous: store, port file
+COLLECTIVE_S = 300        # any one collective
 FOCAL = dict(label_loss_func="focal_loss")
 PLANE = dict(with_plane_norm_loss=True, num_queries=28)
 
@@ -132,14 +145,19 @@ def train_run(cfg, batches, mesh=None, part=slice(None)):
     before the clip (summed over ranks: a sum or mean slip would show
     here, where the clip and Adam would hide a common factor), the first
     moments after step 1 (the clipped gradient x 0.1) and the final
-    parameters."""
+    parameters, the split ones gathered whole. `sizes` has, per split
+    parameter, its full, local and first-moment element counts (None for
+    a frozen one, which AdamW holds no moments of)."""
     from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+    from gwdepth_tpu_torch.parallel import train_state as ts
+    from gwdepth_tpu_torch.parallel.partition import placed, unshard
 
     model = model_for(cfg)
+    full = {n: p.numel() for n, p in model.named_parameters()}
     state = create_train_state(cfg, model, steps_per_epoch=2,
                                mesh=mesh or solo())
     step = make_train_step(cfg)
-    clip = torch.nn.utils.clip_grad_norm_
+    clip = ts.clip_grad_norm_
     first = {}
 
     def spy(params, *args, **kw):
@@ -149,7 +167,7 @@ def train_run(cfg, batches, mesh=None, part=slice(None)):
         return clip(params, *args, **kw)
 
     logs, mu = [], None
-    torch.nn.utils.clip_grad_norm_ = spy
+    ts.clip_grad_norm_ = spy
     try:
         for i, batch in enumerate(batches):
             state, vec = step(state, batch.map(lambda t: t[part]),
@@ -160,12 +178,21 @@ def train_run(cfg, batches, mesh=None, part=slice(None)):
                       for n, p in model.named_parameters()
                       if p.requires_grad}
     finally:
-        torch.nn.utils.clip_grad_norm_ = clip
-    return {"keys": list(step.log_keys), "logs": np.stack(logs), "mu": mu,
-            "grads": {n: first[id(p)] for n, p in model.named_parameters()
-                      if id(p) in first},
-            "params": {n: p.detach().clone()
-                       for n, p in model.named_parameters()}}
+        ts.clip_grad_norm_ = clip
+    pl = placed(model)
+    moments = {id(p): st["exp_avg"].numel()
+               for p, st in state.optimizer.state.items()}
+    sizes = {} if pl is None else {
+        n: [full[n], p.numel(), moments.get(id(p))]     # None: frozen
+        for n, p in zip(pl.names, pl.params)}
+    return {"keys": list(step.log_keys), "logs": np.stack(logs),
+            "mu": unshard(model, mu),
+            "grads": unshard(model, {n: first[id(p)]
+                                     for n, p in model.named_parameters()
+                                     if id(p) in first}),
+            "params": unshard(model, {n: p.detach().clone()
+                                      for n, p in model.named_parameters()}),
+            "sizes": sizes}
 
 
 def max_rank_gap(mesh, tensors):
@@ -275,11 +302,11 @@ def lib(mesh, out_dir, root):
     return res
 
 
-def train_cli(out_dir, root):
+def train_cli(out_dir, root, extra=()):
     """`main.main` for an epoch, then a second one after `--resume`."""
     from gwdepth_tpu_torch import main as pmain
 
-    argv = cli_args(root, os.path.join(out_dir, "exp"))
+    argv = cli_args(root, os.path.join(out_dir, "exp")) + list(extra)
     pmain.main(argv + ["--epochs", "1"])
     return pmain.main(argv + ["--epochs", "2", "--resume", "auto"])
 
@@ -300,6 +327,256 @@ def cli(mesh, out_dir, root):
                  + ["--mesh", "2", "--resume", os.path.join(
                      out_dir, "exp", "checkpoints", "checkpoint.pth")])
     return res
+
+
+class MLP(torch.nn.Module):
+    """Two linears named as the JAX rule's column and row pair, and a
+    norm: `linear1` splits by output features, `linear2` by input
+    features, `norm` and the biases stay whole."""
+
+    def __init__(self, d=8, h=16, o=4):
+        super().__init__()
+        self.linear1 = torch.nn.Linear(d, h)
+        self.linear2 = torch.nn.Linear(h, o)
+        self.norm = torch.nn.LayerNorm(o)
+
+    def forward(self, x):
+        return self.norm(self.linear2(torch.relu(self.linear1(x))))
+
+
+def mlp_for(seed=0):
+    torch.manual_seed(seed)
+    return MLP()
+
+
+def mlp_input():
+    return torch.from_numpy(np.random.default_rng(5).normal(
+        size=(6, 8)).astype(np.float32))
+
+
+def guard_errors():
+    """K1's and K2's entries given a DTensor weight (replicated over a
+    device mesh of the world): the errors they raise, by kernel."""
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from gwdepth_tpu_torch.ops.fused_conv import conv3x3_ln_act
+    from gwdepth_tpu_torch.ops.ref_attn_diffusion import ref_attn_diffusion
+
+    dm = init_device_mesh("cpu", (int(os.environ["WORLD_SIZE"]),))
+
+    def dt(t):
+        return distribute_tensor(t, dm, [Replicate()])
+
+    calls = {"k2": lambda: conv3x3_ln_act(torch.zeros(1, 4, 4, 8),
+                                          dt(torch.zeros(3, 3, 8, 16))),
+             "k1": lambda: ref_attn_diffusion(torch.zeros(1, 4, 4, 16),
+                                              dt(torch.zeros(3, 3, 16, 16)),
+                                              torch.zeros(16))}
+    out = {}
+    for k, call in calls.items():
+        try:
+            call()
+            out[k] = None
+        except TypeError as e:
+            out[k] = str(e)
+    return out
+
+
+def tp(mesh, out_dir, root):
+    """Tensor parallelism on a (1, 2) mesh: the MLP, the train step, the
+    CLI and its checkpoints, the DTensor guard."""
+    from gwdepth_tpu_torch import main as pmain
+    from gwdepth_tpu_torch.config import tiny_test_config
+    from gwdepth_tpu_torch.data.batch import dummy_batch
+    from gwdepth_tpu_torch.parallel import create_train_state
+    from gwdepth_tpu_torch.parallel.partition import (gathered, place_params,
+                                                      placed, unshard)
+    from gwdepth_tpu_torch.utils.checkpoint import (CheckpointManager,
+                                                    restore_file)
+
+    assert mesh.shape == (1, 2) and mesh.model_size == 2
+    res = {"rank": mesh.rank, "model_rank": mesh.model_rank,
+           "data_rank": mesh.data_rank, "share": [mesh.share(2).start,
+                                                  mesh.share(2).stop]}
+    # the column- then row-split MLP against the replicated one (the test)
+    mlp = place_params(mlp_for(), mesh)
+    with gathered(mlp):
+        y = mlp(mlp_input())
+    res["mlp"] = {"y": y.tolist(), "shards": {
+        n: list(p.shape) for n, p in mlp.named_parameters()}}
+
+    # the train step, without and with use_pallas, the whole batch a rank
+    for up in (False, True):
+        cfg = tiny_test_config(matcher="scipy", use_pallas=up)
+        batches = [dummy_batch(cfg, 2, num_lines=3 + i, seed=i)
+                   for i in range(N_STEPS)]
+        run = train_run(cfg, batches, mesh, mesh.share(2))
+        res[f"train_{up}"] = {"logs": run["logs"].tolist(),
+                              "sizes": run["sizes"]}
+        if mesh.is_main:
+            torch.save(run, os.path.join(out_dir, f"tp_train_{up}.pt"))
+
+    # main.main --mesh 1,2: 2 epochs (the second after --resume)
+    state = train_cli(out_dir, root, ["--mesh", "1,2"])
+    final = unshard(state.model, {n: p.detach().clone() for n, p in
+                                  state.model.named_parameters()})
+    res["cli_step"] = state.step
+    ckpt = os.path.join(out_dir, "exp", "checkpoints", "checkpoint.pth")
+    if mesh.is_main:
+        torch.save(final, os.path.join(out_dir, "tp_cli_params.pt"))
+
+    # the CLI's checkpoint restored into a fresh split state (--resume)
+    cfg = pmain.config_from_args(pmain.build_argparser().parse_args(
+        cli_args(root, os.path.join(out_dir, "exp"))))
+    fresh = create_train_state(cfg, model_for(cfg), mesh=mesh)
+    res["resume_epoch"] = restore_file(fresh, ckpt)
+    got = unshard(fresh.model, {n: p.detach() for n, p in
+                                fresh.model.named_parameters()})
+    res["resume_equal"] = all(torch.equal(got[n], final[n]) for n in final)
+    res["resume_local_shapes"] = all(
+        list(p.shape) == list(q.shape) for p, q in zip(
+            fresh.model.parameters(), state.model.parameters()))
+
+    # a one-process checkpoint (one step, so AdamW has moments) restored
+    # into a split state: the whole weights and moments come back
+    solo_dir = os.path.join(out_dir, "solo_ckpt")
+    one_state = create_train_state(cfg, model_for(cfg), mesh=solo())
+    with torch.no_grad():
+        for p in one_state.model.parameters():
+            p.add_(0.25)
+    for p in one_state.trainable:
+        p.grad = torch.full_like(p, 0.01)
+    one_state.apply_gradients()
+    if mesh.is_main:
+        CheckpointManager(solo_dir).save(0, one_state, cfg)
+    mesh.barrier()
+    split = create_train_state(cfg, model_for(cfg), mesh=mesh)
+    res["solo_epoch"] = CheckpointManager(solo_dir).restore(split)
+    got = unshard(split.model, {n: p.detach() for n, p in
+                                split.model.named_parameters()})
+    res["solo_params_equal"] = all(
+        torch.equal(got[n], p.detach())
+        for n, p in one_state.model.named_parameters())
+    pl = placed(split.model)
+    names = {id(p): n for n, p in split.model.named_parameters()}
+    one_p = dict(one_state.model.named_parameters())
+    mu = unshard(split.model, {names[id(p)]: split.optimizer.state[p][
+        "exp_avg"] for p in split.trainable})
+    res["solo_moments_equal"] = all(
+        torch.equal(mu[n], one_state.optimizer.state[one_p[n]]["exp_avg"])
+        for n in mu)
+    res["split_names"] = list(pl.names)
+
+    res["guard"] = guard_errors()
+    return res
+
+
+def tp4(mesh, out_dir, root):
+    """A (2, 2) mesh of 4 ranks on the MLP: shares, sums over the data
+    group, the meters, the gather, and two train steps (gradients before
+    the clip, the clip's norm, the parameters) against one process on
+    the global batch of 4, which rank 0 also runs."""
+    from gwdepth_tpu_torch.config import tiny_test_config
+    from gwdepth_tpu_torch.data.dataset import Loader
+    from gwdepth_tpu_torch.parallel import create_train_state
+    from gwdepth_tpu_torch.parallel import train_state as ts
+    from gwdepth_tpu_torch.parallel.partition import gathered, unshard
+    from gwdepth_tpu_torch.utils.logging import SmoothedValue
+
+    assert mesh.shape == (2, 2)
+    sl = mesh.share(4)
+    res = {"rank": mesh.rank, "data_rank": mesh.data_rank,
+           "model_rank": mesh.model_rank, "share": [sl.start, sl.stop]}
+    # one image-count per data coordinate: 1 + data rank (each model rank
+    # of a data coordinate adds the same)
+    res["sum_host"] = mesh.sum_host([1.0 + mesh.data_rank]).tolist()
+    m = SmoothedValue()
+    m.update(2.0 + mesh.data_rank)
+    m.sync(mesh)
+    res["meter"] = [m.count, m.total]
+    got = mesh.gather(("obj", mesh.data_rank, mesh.model_rank))
+    res["gather"] = got
+    res["loader"] = loader_batches(Loader(FakeDS(4), 4, shuffle=False,
+                                          num_workers=1, rank=mesh.data_rank,
+                                          world=mesh.data_size))
+
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(2, 4, 8)).astype(np.float32))
+    cfg = tiny_test_config(clip_max_norm=0.05, lr=1e-2, weight_decay=1e-3)
+
+    def run(mesh_, part):
+        model = mlp_for(3)
+        state = create_train_state(cfg, model, mesh=mesh_)
+        clip = ts.clip_grad_norm_
+        rec = {"grads": [], "norms": [], "losses": []}
+
+        def spy(params, *args, **kw):
+            params = list(params)
+            rec["grads"].append({id(p): p.grad.clone() for p in params})
+            norm = clip(params, *args, **kw)
+            rec["norms"].append(float(norm))
+            return norm
+
+        ts.clip_grad_norm_ = spy
+        try:
+            for xb in x:
+                xb = xb[part]
+                with gathered(model):
+                    y = model(xb)
+                    # the mean over the global batch: images counted by
+                    # the data group's sums
+                    loss = (mesh_.all_sum((y ** 2).sum())
+                            / mesh_.all_sum(torch.tensor(float(len(xb)))))
+                    loss.backward()
+                rec["losses"].append(float(loss))
+                state.apply_gradients()
+        finally:
+            ts.clip_grad_norm_ = clip
+        names = {id(p): n for n, p in model.named_parameters()}
+        return {"losses": rec["losses"], "norms": rec["norms"],
+                "grads": [{k: v.tolist() for k, v in unshard(model, {
+                    names[i]: g for i, g in step.items()}).items()}
+                    for step in rec["grads"]],
+                "params": {k: v.tolist() for k, v in unshard(model, {
+                    n: p.detach() for n, p in model.named_parameters()
+                }).items()},
+                "local": {n: list(p.shape)
+                          for n, p in model.named_parameters()}}
+
+    res["tp"] = run(mesh, sl)
+    if mesh.is_main:
+        res["one"] = run(solo(), slice(None))
+    return res
+
+
+def join():
+    """Join this rank's gloo group through a store on a port that the
+    system picks (see the module docstring)."""
+    import torch.distributed as dist
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    path = os.path.join(os.getcwd(), "port")
+    limit = datetime.timedelta(seconds=JOIN_S)
+    if rank == 0:
+        store = dist.TCPStore("127.0.0.1", 0, world, True, timeout=limit,
+                              wait_for_workers=False)
+        with open(path + ".tmp", "w") as f:
+            f.write(str(store.port))
+        os.replace(path + ".tmp", path)
+    else:
+        t0 = time.monotonic()
+        while not os.path.exists(path):
+            if time.monotonic() - t0 > JOIN_S:
+                raise TimeoutError(f"no {path} after {JOIN_S} s")
+            time.sleep(0.05)
+        with open(path) as f:
+            port = int(f.read())
+        store = dist.TCPStore("127.0.0.1", port, world, False, timeout=limit)
+    os.environ["MASTER_PORT"] = str(store.port)
+    dist.init_process_group(
+        "gloo", store=store, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=COLLECTIVE_S))
 
 
 def cli_args(root, out):
@@ -323,11 +600,16 @@ if __name__ == "__main__":
     torch.set_num_threads(1)
     mode, out_dir, root = sys.argv[1:4]
     from gwdepth_tpu_torch.parallel import make_mesh, setup
+    from gwdepth_tpu_torch.parallel.mesh import launched, teardown
 
+    if launched():
+        join()
     setup("cpu")
-    mesh = make_mesh((-1,))
-    res = {"lib": lib, "cli": cli, "one": one}[mode](mesh, out_dir, root)
+    mesh = make_mesh(*{"tp": ((1, 2), ("data", "model")),
+                       "tp4": ((2, 2), ("data", "model"))}.get(
+        mode, ((-1,), ("data",))))
+    res = {"lib": lib, "cli": cli, "one": one, "tp": tp, "tp4": tp4}[mode](
+        mesh, out_dir, root)
     with open(os.path.join(out_dir, f"{mode}{mesh.rank}.json"), "w") as f:
         json.dump(res, f)
-    from gwdepth_tpu_torch.parallel.mesh import teardown
     teardown()
