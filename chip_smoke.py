@@ -48,17 +48,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
   7. train    8 train and 2 val synthetic scenes at 720x1280 through
               `gwdepth_tpu_torch.main.main --use_pallas` on the card at the
               shipped config (bs2 704x1024, dropout 0.1): one epoch of 4 steps,
-              eval, checkpoint, then a `--resume` epoch; the launch counts
-              of each run are zeroed just before and read just after and
-              must equal the numbers the link list gives; finite losses,
-              output files, frozen stem bit-equal, trained weights moved;
-              then the median ms/step, the host matcher's share and a
-              torch.profiler split of one step;
+              eval, checkpoint, then a `--resume` epoch, with the default
+              `--matcher jax`; the launch counts of each run are zeroed
+              just before and read just after and must equal the numbers
+              the link list gives (lap_jv: 1 a step and an eval forward);
+              finite losses, output files, frozen stem bit-equal, trained
+              weights moved; then, from the trained state restored
+              before each, `--matcher jax` and `--matcher scipy`: their
+              losses on one forward's outputs within 1e-6 relative, and
+              per backend the median ms/step, the scipy solve's host
+              time and a torch.profiler split of one step (busy time,
+              idle share);
   8. train card vs CPU  one train step's losses and every gradient tensor
               at the shipped widths on a 128x192 canvas, dropout 0, the
               same weights and batch on both devices: without the kernels
               (float32 throughout; no K1 or K2 launch), and with them
-              (use_pallas; K1 4, K2 25 and 51 backward launches; held at
+              (use_pallas; K1 4, K2 25 and 51 backward launches; the
+              JV matcher on both devices, lap_jv once on the card; held at
               fixed bf16-tap limits that a control, the CPU's step on
               images perturbed by 1e-7, must exceed threefold; the
               depth points each run samples are reported); the same for
@@ -164,6 +170,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               AdamW bytes per rank beside one process's and the split
               share of the parameters. `--dp-role tp-main|tp-steps`
               starts those processes.
+  20. matcher  (run after phase 3) the JV matcher kernel `lap_jv` at the
+              shipped step's problems (6 layers x bs 2, 100 queries, 96
+              slots) over seeded costs with n_valid from 0 to 96: floats,
+              small integers (ties), the criterion's cost of repeated
+              predictions, every n_valid = 96; the assignments must equal
+              the plain version's; the criterion on the card: one launch
+              a call, no sync under sync-debug mode "error", the CPU's
+              losses; kernel time by events and in a CUDA graph beside
+              the plain version and the scipy path (copy and solve), the
+              bound, and the Dijkstra steps (time per serial step).
+  21. loader (run after phase 7) the native loader on phase 7's scenes:
+              every train and eval sample native against PIL bit for bit
+              (decoded image, transformed image, depth, seg, lines,
+              centers, the collated arrays); ms a sample of decode +
+              train_transform and the Loader's images/s at bs2 on each
+              path. Where the host has no libpng the library is built
+              without its decoder and PIL decodes.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -194,7 +217,7 @@ import torch.nn.functional as F
 from gwdepth_tpu_torch import _build
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.models import build_glassrgbd, swin
-from gwdepth_tpu_torch.ops import fused_conv
+from gwdepth_tpu_torch.ops import fused_conv, lap
 from gwdepth_tpu_torch.ops.fused_conv import (conv3x3_ln_act,
                                               conv3x3_ln_act_plain, link_key)
 from gwdepth_tpu_torch.ops import window_msa as wm
@@ -498,6 +521,182 @@ def phase_k2(rng, dev):
 
 
 # ---------------------------------------------------------------------------
+# matcher phase (20)
+# ---------------------------------------------------------------------------
+
+# the shipped train step's matcher problems: 6 decoder layers x bs 2, 100
+# queries, max_lines = 96 target slots
+LAP_SHAPE = (6, 2, 100, 96)
+
+
+def lap_problem_sets(rng):
+    """Seeded (L, B, Q, T) float32 costs at LAP_SHAPE with n_valid drawn
+    from 0..T (T and 0 always among them): normal floats; small integers
+    (exact ties); the criterion's own cost (`build_match_cost`) of random
+    predictions in which half the queries repeat the other half (tied
+    columns); every problem at n_valid = T."""
+    from gwdepth_tpu_torch.losses.criterion import build_match_cost
+
+    L, B, Q, T = LAP_SHAPE
+
+    def counts():
+        nv = rng.integers(0, T + 1, size=(L, B))
+        nv[0, 0], nv[-1, -1] = T, 0
+        return torch.from_numpy(nv)
+
+    floats = torch.from_numpy(rng.normal(size=LAP_SHAPE).astype(np.float32))
+    ints = torch.from_numpy(rng.integers(0, 4, size=LAP_SHAPE)
+                            .astype(np.float32))
+    logits = rng.normal(size=(L, B, Q, 2)).astype(np.float32)
+    lines = rng.uniform(size=(L, B, Q, 6)).astype(np.float32)
+    logits[:, :, Q // 2:] = logits[:, :, :Q // 2]
+    lines[:, :, Q // 2:] = lines[:, :, :Q // 2]
+    tgt = torch.from_numpy(rng.uniform(size=(B, T, 6)).astype(np.float32))
+    crit = build_match_cost(torch.from_numpy(logits), torch.from_numpy(lines),
+                            tgt, 1.0, 5.0)
+    return {"floats": (floats, counts()), "ints": (ints, counts()),
+            "criterion_tied": (crit, counts()),
+            "full": (floats, torch.full((L, B), T))}
+
+
+def _criterion_inputs(rng, dev):
+    """Random decoder outputs of the shipped step (6 layers, bs 2, 100
+    queries) and targets with 37 and 96 of 96 slots valid."""
+    L, B, Q, T = LAP_SHAPE
+
+    def layer():
+        return {"pred_logits": torch.from_numpy(rng.normal(
+                    size=(B, Q, 2)).astype(np.float32)).to(dev),
+                "pred_lines": torch.from_numpy(rng.uniform(
+                    size=(B, Q, 6)).astype(np.float32)).to(dev)}
+
+    out = layer()
+    out["aux_outputs"] = [layer() for _ in range(L - 1)]
+    lines = torch.from_numpy(rng.uniform(size=(B, T, 6)).astype(
+        np.float32)).to(dev)
+    mask = torch.zeros((B, T), dtype=torch.bool)
+    mask[0, :37] = True
+    mask[1] = True
+    return out, lines, mask.to(dev)
+
+
+def _plain_by_problem(cost, nv):
+    """The plain version's tgt2query of (L, B, Q, T) problems, called
+    problem by problem: (tgt2query, total steps, the Dijkstra steps of
+    each problem, host ms)."""
+    want = torch.zeros((*nv.shape, cost.shape[-1]), dtype=torch.int64)
+    stats, per = {}, []
+    t0 = time.perf_counter()
+    for idx in np.ndindex(*nv.shape):
+        before = stats.get("dijkstra_steps", 0)
+        want[idx] = lap.jv_plain(cost[idx], nv[idx], stats)
+        per.append(stats["dijkstra_steps"] - before)
+    return want, stats, per, (time.perf_counter() - t0) * 1e3
+
+
+def phase_matcher(rng, dev, card: str) -> dict:
+    """Phase 20: the JV matcher kernel (`csrc/lap_jv.cu`) at the shipped
+    step's shape. Its assignments against the plain version's on every
+    set of `lap_problem_sets` (equal, index for index); the criterion on
+    the card with the counts zeroed just before and read just after (one
+    launch a call) and under sync-debug mode "error" (no device-to-host
+    copy or sync), its losses against the CPU criterion's; then the
+    kernel's time by events and as device time in a CUDA graph beside the
+    plain version's and the scipy path's (its copy and host solve), the
+    bound (the cost rows the problems read, and ~3 float32 operations a
+    column a Dijkstra step), and the Dijkstra steps, total and of the
+    longest problem, so the time of one serial step can be read."""
+    from gwdepth_tpu_torch.losses import line_set_criterion
+
+    L, B, Q, T = LAP_SHAPE
+    sets = {}
+    for name, (cost, nv) in lap_problem_sets(rng).items():
+        want, stats, per, plain_ms = _plain_by_problem(cost, nv)
+        cd, nd = cost.to(dev), nv.to(dev)
+        torch.cuda.synchronize()
+        lap.reset_counts()
+        got = lap.lap_jv(cd, nd)
+        torch.cuda.synchronize()
+        assert lap.lap_jv.launches == 1, lap.lap_jv.launches
+        err = int((got.cpu() - want).abs().max())
+        sets[name] = {"equal": bool(torch.equal(got.cpu(), want)),
+                      "max_abs_err": err, "plain_ms": plain_ms,
+                      "n_valid_sum": int(nv.sum()),
+                      "dijkstra_steps": stats["dijkstra_steps"],
+                      "dijkstra_steps_max": max(per),
+                      "augment_steps": stats["augment_steps"]}
+        log(f"[matcher] {name}: {json.dumps(sets[name])}")
+        assert sets[name]["equal"], (name, sets[name])
+
+    # the criterion: one launch, no sync, the CPU's losses
+    out, lines, mask = _criterion_inputs(rng, dev)
+    kw = dict(eos_coef=0.1, set_cost_class=1.0, set_cost_line=5.0,
+              matcher_backend="jax")
+    torch.cuda.synchronize()
+    _reset_counts()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        crit = line_set_criterion(out, lines, mask, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = lap.lap_jv.launches
+    cpu = line_set_criterion(
+        {"pred_logits": out["pred_logits"].cpu(),
+         "pred_lines": out["pred_lines"].cpu(),
+         "aux_outputs": [{k: v.cpu() for k, v in a.items()}
+                         for a in out["aux_outputs"]]},
+        lines.cpu(), mask.cpu(), **kw)
+    crit_gap = max(abs(float(crit[k]) - float(v)) / max(abs(float(v)), 1e-12)
+                   for k, v in cpu.items())
+    log(f"[matcher] criterion at {LAP_SHAPE}: {launches} lap_jv launch, no "
+        f"sync under sync-debug mode 'error', losses vs CPU max relative "
+        f"gap {crit_gap:.3g}")
+    assert launches == 1, launches
+    assert crit_gap <= MATCHER_LOSS_REL_TOL, (crit, cpu)
+
+    # times on the floats set
+    cost, nv = lap_problem_sets(np.random.default_rng(SEED + 20))["floats"]
+    cd, nd = cost.to(dev), nv.to(dev)
+    kernel_ms = time_ms(lambda: lap.lap_jv(cd, nd))
+    device_ms = graph_ms(lambda: lap.lap_jv(cd, nd))
+    _, stats, per, plain_ms = _plain_by_problem(cost, nv)
+    scipy, solve = [], []
+    for _ in range(12):
+        torch.cuda.synchronize()
+        lap.reset_counts()
+        t0 = time.perf_counter()
+        lap.match_lines(cd, nd, "scipy")
+        torch.cuda.synchronize()
+        scipy.append((time.perf_counter() - t0) * 1e3)
+        solve.append(lap.match_lines.solve_seconds * 1e3)
+    scipy_ms, solve_ms = float(np.median(scipy[2:])), float(np.median(
+        solve[2:]))
+    nbytes = 4 * Q * int(nv.sum()) + 8 * L * B + 8 * L * B * T
+    flops = 3 * Q * stats["dijkstra_steps"]
+    res = {"kernel_ms": kernel_ms, "device_ms": device_ms,
+           "plain_ms": plain_ms, "scipy_ms": scipy_ms,
+           "scipy_solve_ms": solve_ms, "scipy_copy_ms": scipy_ms - solve_ms,
+           **bound_fields(flops, nbytes), "library_ms": None,
+           "n_valid_sum": int(nv.sum()),
+           "dijkstra_steps": stats["dijkstra_steps"],
+           "dijkstra_steps_max": max(per),
+           "augment_steps": stats["augment_steps"],
+           "device_us_per_serial_step": device_ms * 1e3 / max(per),
+           "max_abs_err": max(r["max_abs_err"] for r in sets.values()),
+           "sets": sets, "criterion_launches": launches,
+           "criterion_loss_rel_gap": crit_gap}
+    log(f"[matcher] lap_jv at {LAP_SHAPE}, n_valid sum {res['n_valid_sum']}:"
+        f" kernel {kernel_ms:.4f} ms by events, {device_ms:.4f} ms device "
+        f"(CUDA graph), plain {plain_ms:.1f} ms (host), scipy path "
+        f"{scipy_ms:.3f} ms ({solve_ms:.3f} solve, "
+        f"{scipy_ms - solve_ms:.3f} copy), bound {res['bound_ms']:.6f} ms "
+        f"({res['bound_by']}); Dijkstra steps {stats['dijkstra_steps']} "
+        f"(longest problem {max(per)}): "
+        f"{res['device_us_per_serial_step']:.3f} us a serial step on {card}")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # model phase
 # ---------------------------------------------------------------------------
 
@@ -542,12 +741,21 @@ def profile_device(fn, wall_ms: float, label: str, tag: str) -> dict:
 
     busy_ms = busy_us / 1e3
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:12]
+    # the host's time in the CUDA runtime (launches, copies, syncs)
+    api = {}
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name.startswith("cuda"):
+            t, n = api.get(ev.name, (0.0, 0))
+            api[ev.name] = (t + ev.time_range.elapsed_us(), n + 1)
+    api_top = sorted(api.items(), key=lambda kv: -kv[1][0])[:5]
     rec = {label: wall_ms, "device_busy_ms": busy_ms,
            "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
            "device_kernels": len(spans), "k1_ms": share(_K1_NAMES),
            "k1_kernels": count(_K1_NAMES), "k2_ms": share(_K2_NAMES),
            "k2_kernels": count(_K2_NAMES),
-           "top": [[name[:90], t / 1e3, n] for name, (t, n) in top]}
+           "top": [[name[:90], t / 1e3, n] for name, (t, n) in top],
+           "host_cuda_api": [[name, t / 1e3, n]
+                             for name, (t, n) in api_top]}
     log(f"[{tag}] " + json.dumps(rec))
     return rec
 
@@ -753,6 +961,10 @@ K2_FWD_PER_FORWARD = sum(n for *_, n in K2_PATH)               # 25
 K2_BWD_PER_STEP = sum(n * (1 + -(-ci // fused_conv.MAX_CO))
                       for _, ci, _, _, n in K2_PATH)            # 51
 K1_PER_FORWARD = 4
+# the launches of one shipped train step (`use_pallas`, --matcher jax): the
+# criterion matches every decoder layer's problems in one lap_jv launch
+STEP_COUNTS = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+               "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0, "lap_jv": 1}
 TRAIN_HW = (704, 1024)
 TRAIN_BS = 2
 K1_TRAIN_SHAPE = (TRAIN_BS, 980, 40, 16)
@@ -996,23 +1208,21 @@ def k1_backward_site(rng, dev, shape, forward_times: bool = True) -> dict:
 # ---------------------------------------------------------------------------
 
 def _counts():
-    from gwdepth_tpu_torch.ops.lap import match_lines
     return {"k1": ref_attn_diffusion.launches,
             "k2": conv3x3_ln_act.launches,
             "k2_bwd": conv3x3_ln_act.bwd_launches,
             "k3": wm.window_msa_kernel.launches,
             "k4": wm.layout_fence.launches,
-            "matcher_calls": match_lines.calls}
+            "lap_jv": lap.lap_jv.launches,
+            "matcher_calls": lap.match_lines.calls}
 
 
 def _reset_counts():
     from gwdepth_tpu_torch.ops import ref_attn_diffusion as k1_mod
-    from gwdepth_tpu_torch.ops.lap import match_lines
     k1_mod.reset_counts()
     fused_conv.reset_counts()
     wm.reset_counts()
-    match_lines.calls = 0
-    match_lines.solve_seconds = 0.0
+    lap.reset_counts()
 
 
 def _expected_counts(steps: int, eval_forwards: int) -> dict:
@@ -1020,14 +1230,13 @@ def _expected_counts(steps: int, eval_forwards: int) -> dict:
     return {"k1": K1_PER_FORWARD * (steps + eval_forwards),
             "k2": K2_FWD_PER_FORWARD * (steps + eval_forwards),
             "k2_bwd": K2_BWD_PER_STEP * steps, "k3": 0, "k4": 0,
+            "lap_jv": steps + eval_forwards,
             "matcher_calls": steps + eval_forwards}
 
 
 def phase_train(card: str, tmp: str):
     from gwdepth_tpu_torch import main as train_main
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
-    from gwdepth_tpu_torch.ops.lap import match_lines
-    from gwdepth_tpu_torch.parallel import make_train_step
     from gwdepth_tpu_torch.tools.synthetic import generate_dataset
 
     n_train, n_val = 8, 2
@@ -1098,35 +1307,296 @@ def phase_train(card: str, tmp: str):
     loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
                     seed=SEED, num_workers=4)
     batches = [b.to("cuda") for b, _ in loader.epoch(5)]
+    matchers = train_matchers(cfg, state, batches, card)
+    del state
+    torch.cuda.empty_cache()
+    mj, ms = matchers["jax"], matchers["scipy"]
+    return runs, {"step_ms": mj["step_ms"], "matcher_ms": ms["solve_ms"],
+                  "step_times": mj["step_times"], "profile": mj["profile"],
+                  "matchers": matchers, "args": args,
+                  "peak_bytes": mj["peak_bytes"],
+                  "root": root, "out": out, "n_train": n_train,
+                  "n_val": n_val}
+
+
+# the losses of --matcher jax and --matcher scipy on the same outputs: the
+# matched cost is the same optimum, so only a float32 reassociation of the
+# criterion's sums may part them (and assignments that differ on a tie)
+MATCHER_LOSS_REL_TOL = 1e-6
+MATCHER_STEPS = 6             # timed steps a round, after 2 warm-ups
+# the rounds, each from the restored state: the host path (the parent's)
+# and the kernel in turns, so that drift in the host's speed over the
+# phase falls on both
+MATCHER_ORDER = ("scipy", "jax", "jax_sync", "jax_sync", "jax", "scipy")
+# "jax_sync": the kernel with a torch.cuda.synchronize() after each
+# matcher call, where the scipy path's copy waits: it parts the matcher's
+# own cost from that of the host running ahead of the card
+
+
+def _matcher_round(cfg, state, batches, matcher, runs, solve, first, peak,
+                   profs):
+    """One round of `train_matchers`: 2 warm-ups and MATCHER_STEPS timed
+    steps, each with its launches counted, then a profiled step on the
+    round's first time for `matcher`; the records go to the dicts."""
+    from gwdepth_tpu_torch.parallel import make_train_step
+
     step = make_train_step(cfg)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    want = dict(STEP_COUNTS, lap_jv=int(cfg.matcher == "jax"))
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    times, solve = [], []
-    for i in range(10):
+    times = []
+    for i in range(2 + MATCHER_STEPS):
         torch.cuda.synchronize()
-        match_lines.solve_seconds = 0.0
+        _reset_counts()
         t0 = time.perf_counter()
         state, vec = step(state, batches[i % len(batches)], gen)
         torch.cuda.synchronize()
         if i >= 2:
             times.append((time.perf_counter() - t0) * 1e3)
-            solve.append(match_lines.solve_seconds * 1e3)
+            solve[matcher].append(lap.match_lines.solve_seconds * 1e3)
+        got = _counts()
+        assert {k: got[k] for k in want} == want, (matcher, got, want)
         assert torch.isfinite(vec).all(), "non-finite train loss"
-    step_ms = float(np.median(times))
-    matcher_ms = float(np.median(solve))
-    peak = torch.cuda.max_memory_allocated()
-    log(f"[train] train step bs{TRAIN_BS} {TRAIN_HW[0]}x{TRAIN_HW[1]}: "
-        f"median {step_ms:.3f} ms over {len(times)} steps "
-        f"({json.dumps(times)}) on {card}; host matcher solve "
-        f"{matcher_ms:.3f} ms/step, share {matcher_ms / step_ms:.4f}; "
-        f"peak memory {peak / 2**30:.2f} GiB")
-    prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
-                          "step_ms", "train-profile")
-    return runs, {"step_ms": step_ms, "matcher_ms": matcher_ms,
-                  "step_times": times, "profile": prof, "args": args,
-                  "peak_bytes": peak,
-                  "root": root, "out": out, "n_train": n_train,
-                  "n_val": n_val}
+        first.setdefault(matcher, dict(zip(step.log_keys,
+                                           vec.tolist()))["loss"])
+    runs[matcher].append(times)
+    peak[matcher] = torch.cuda.max_memory_allocated()
+    if matcher not in profs:
+        profs[matcher] = profile_device(
+            lambda: step(state, batches[0], gen), float(np.median(times)),
+            "step_ms", f"train-profile-{matcher}")
+    return state
+
+
+def sync_sites(cfg, state, batch) -> dict:
+    """The synchronizing calls of one --matcher jax train step that
+    PyTorch's sync-debug mode sees, counted by the Python line that made
+    them (the backward's run on autograd's thread, under its caller):
+    the 12 commonest and the total."""
+    from gwdepth_tpu_torch.parallel import make_train_step
+
+    step = make_train_step(cfg.replace(matcher="jax"))
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step(state, batch, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return {"total": sum(sites.values()), "top": sites.most_common(12)}
+
+
+@contextlib.contextmanager
+def synced_matcher():
+    """The criterion's matcher followed by torch.cuda.synchronize()."""
+    from gwdepth_tpu_torch.losses import criterion
+
+    real = criterion.match_lines
+
+    def synced(*a, **k):
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        return out
+
+    criterion.match_lines = synced
+    try:
+        yield
+    finally:
+        criterion.match_lines = real
+
+
+def train_matchers(cfg, state, batches, card: str) -> dict:
+    """Phase 7's step timing for each matcher backend, each round from
+    the trained state as it came (restored in place) and on the same
+    batches: --matcher jax (the default: one lap_jv launch a step, no
+    sync) and --matcher scipy (one device-to-host copy and host solve a
+    step). First both backends'
+    losses on the outputs of one train-mode forward (dropout from one
+    seeded generator), held to MATCHER_LOSS_REL_TOL; then rounds of
+    MATCHER_STEPS steps in MATCHER_ORDER, the launches counted per step:
+    per backend the median over its rounds and each round's, the scipy
+    solve's host time, peak memory, and a profiled step (busy time; the
+    idle share against that median)."""
+    from gwdepth_tpu_torch.parallel.train_step import compute_losses
+
+    saved = copy.deepcopy({"model": state.model.state_dict(),
+                           "opt": state.optimizer.state_dict(),
+                           "sched": state.scheduler.state_dict(),
+                           "step": state.step})
+
+    def restore():
+        state.model.load_state_dict(saved["model"])
+        state.optimizer.load_state_dict(saved["opt"])
+        state.scheduler.load_state_dict(saved["sched"])
+        state.step = saved["step"]
+
+    out = {}
+    model = state.model.train()
+    with torch.no_grad():
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        outputs = model(batches[0].images, batches[0].valid, generator=gen)
+        losses = {}
+        for matcher in ("jax", "scipy"):
+            _, logs = compute_losses(cfg.replace(matcher=matcher), outputs,
+                                     batches[0])
+            losses[matcher] = {k: float(v) for k, v in logs.items()}
+        del outputs
+    gap = max(abs(losses["jax"][k] - v) / max(abs(v), 1e-12)
+              for k, v in losses["scipy"].items())
+    log(f"[train] losses --matcher jax vs scipy on one forward's outputs: "
+        f"max relative gap {gap:.3g}; jax {json.dumps(losses['jax'])}")
+    assert gap <= MATCHER_LOSS_REL_TOL, losses
+    runs = {m: [] for m in MATCHER_ORDER}
+    solve = {m: [] for m in MATCHER_ORDER}
+    first, peak, profs = {}, {}, {}
+    for matcher in MATCHER_ORDER:
+        restore()
+        backend = "scipy" if matcher == "scipy" else "jax"
+        with (synced_matcher() if matcher == "jax_sync"
+              else contextlib.nullcontext()):
+            state = _matcher_round(cfg.replace(matcher=backend), state,
+                                   batches, matcher, runs, solve, first,
+                                   peak, profs)
+    for matcher in runs:
+        times = [t for r in runs[matcher] for t in r]
+        step_ms = float(np.median(times))
+        prof = dict(profs[matcher], step_ms=step_ms)
+        if "device_busy_ms" in prof:
+            prof["device_idle_share"] = max(
+                0.0, 1.0 - prof["device_busy_ms"] / step_ms)
+        out[matcher] = {"step_ms": step_ms, "step_times": times,
+                        "round_medians": [float(np.median(r))
+                                          for r in runs[matcher]],
+                        "solve_ms": float(np.median(solve[matcher])),
+                        "peak_bytes": peak[matcher], "profile": prof,
+                        "first_step_loss": first[matcher]}
+        log(f"[train] --matcher {matcher}: train step bs{TRAIN_BS} "
+            f"{TRAIN_HW[0]}x{TRAIN_HW[1]} median {step_ms:.3f} ms over "
+            f"{len(times)} steps in rounds {MATCHER_ORDER} (round medians "
+            f"{json.dumps(out[matcher]['round_medians'])}), device busy "
+            f"{prof.get('device_busy_ms', float('nan')):.3f} ms, idle share "
+            f"{prof.get('device_idle_share', float('nan')):.4f}, host solve "
+            f"{out[matcher]['solve_ms']:.3f} ms/step, peak memory "
+            f"{peak[matcher] / 2**30:.2f} GiB, first step loss "
+            f"{first[matcher]} on {card}")
+    out["sync_sites"] = sync_sites(cfg, state, batches[0])
+    log(f"[train] --matcher jax: synchronizing calls of one step by "
+        f"caller (sync-debug mode 'warn'): {json.dumps(out['sync_sites'])}")
+    del saved
+    torch.cuda.empty_cache()
+    out["loss_rel_gap"] = gap
+    out["losses"] = losses
+    return out
+
+
+@contextlib.contextmanager
+def pil_only():
+    """The data pipeline's PIL paths inside (GWDEPTH_NO_NATIVE=1)."""
+    old = os.environ.get("GWDEPTH_NO_NATIVE")
+    os.environ["GWDEPTH_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["GWDEPTH_NO_NATIVE"]
+        else:
+            os.environ["GWDEPTH_NO_NATIVE"] = old
+
+
+LOADER_ROUNDS = 2             # timing rounds a path, alternating
+
+
+def phase_loader(card: str, train: dict) -> dict:
+    """Phase 21: the native loader (`gwdepth_tpu_torch/native`) on phase
+    7's scenes (720x1280) on the card machine's host. Every train sample
+    (seeded augmentation) and eval sample through the native path and
+    through PIL (GWDEPTH_NO_NATIVE=1): the decoded scene, the transformed
+    image, depth, seg, lines and centers, and the collated arrays must be
+    equal bit for bit. Then ms per train sample of decode plus
+    `train_transform` on each path (medians over the scenes and
+    LOADER_ROUNDS alternating rounds), and the `Loader`'s images/s over
+    one epoch at bs 2 with 4 decode threads, on each path."""
+    import random
+
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch import native
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.data.transforms import (eval_transform,
+                                                   train_transform)
+
+    status = native.available()
+    log(f"[loader] native status on this host: {status.describe()}")
+    assert status.ok, status
+    cfg = train_main.config_from_args(train_main.build_argparser()
+                                      .parse_args(train["args"]))
+
+    def sample(ds, idx, seed):
+        raw, _ = ds.load_raw(idx)
+        dec = np.asarray(raw.image).copy()
+        if ds.split == "train":
+            t = train_transform(raw, random.Random(seed), cfg.train_hw)
+        else:
+            t = eval_transform(raw, cfg.eval_hw)
+        return ([dec, t.image, t.depth, t.seg, t.lines, t.centers],
+                ds.__getitem__(idx, seed=seed))
+
+    compared = 0
+    for split in ("train", "val"):
+        ds = GlassRGBDDataset(cfg, split)
+        for idx in range(len(ds)):
+            seed = SEED + idx
+            nat = sample(ds, idx, seed)
+            with pil_only():
+                pil = sample(ds, idx, seed)
+            for a, b in zip(nat[0], pil[0]):
+                assert a.shape == b.shape and np.array_equal(a, b), \
+                    (split, idx)
+            for k, v in pil[1].items():
+                assert k == "name" or np.array_equal(nat[1][k], v), \
+                    (split, idx, k)
+            compared += 1
+
+    ds = GlassRGBDDataset(cfg, "train")
+
+    def per_sample_ms():
+        out = []
+        for idx in range(len(ds)):
+            t0 = time.perf_counter()
+            raw, _ = ds.load_raw(idx)
+            train_transform(raw, random.Random(SEED + idx), cfg.train_hw)
+            out.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def images_per_s():
+        loader = Loader(ds, batch_size=TRAIN_BS, seed=SEED, num_workers=4)
+        t0 = time.perf_counter()
+        n = sum(b.images.shape[0] for b, _ in loader.epoch(0))
+        return n / (time.perf_counter() - t0)
+
+    times = {"native": [], "pil": []}
+    rates = {"native": [], "pil": []}
+    for _ in range(LOADER_ROUNDS):
+        times["native"] += per_sample_ms()
+        rates["native"].append(images_per_s())
+        with pil_only():
+            times["pil"] += per_sample_ms()
+            rates["pil"].append(images_per_s())
+    res = {"status": status.describe(), "samples_bit_equal": compared,
+           "sample_ms": {k: float(np.median(v)) for k, v in times.items()},
+           "loader_images_per_s": {k: float(np.median(v))
+                                   for k, v in rates.items()},
+           "cpu_count": os.cpu_count()}
+    log(f"[loader] {compared} samples (train and eval) native == PIL bit for "
+        f"bit; decode + train_transform ms a sample and Loader images/s at "
+        f"bs{TRAIN_BS} (4 threads): {json.dumps(res)} on {card}")
+    return res
 
 
 @contextlib.contextmanager
@@ -1274,8 +1744,8 @@ def train_card_vs_cpu(model_name: str, gates: dict,
         torch.cuda.synchronize()
         n = _counts()
         want = ({"k1": k1_want, "k2": K2_FWD_PER_FORWARD,
-                 "k2_bwd": K2_BWD_PER_STEP} if use_pallas
-                else {"k1": 0, "k2": 0, "k2_bwd": 0})
+                 "k2_bwd": K2_BWD_PER_STEP, "lap_jv": 1} if use_pallas
+                else {"k1": 0, "k2": 0, "k2_bwd": 0, "lap_jv": 1})
         assert {k: n[k] for k in want} == want, (n, want)
         assert set(gg) == set(gc) and set(lg) == set(lc)
         assert ("loss_plane" in lc) == bool(gates), sorted(lc)
@@ -1558,7 +2028,8 @@ def phase_eval_outputs(train: dict) -> dict:
     secs = time.perf_counter() - t0
     n = _counts()
     want = {"k1": K1_PER_FORWARD * n_val, "k2": K2_FWD_PER_FORWARD * n_val,
-            "k2_bwd": 0, "k3": 0, "k4": 0, "matcher_calls": n_val}
+            "k2_bwd": 0, "k3": 0, "k4": 0, "lap_jv": n_val,
+            "matcher_calls": n_val}
     log(f"[eval] main.main --eval with the outputs: {secs:.1f} s, launches "
         f"{n}")
     assert n == want, (n, want)
@@ -1639,7 +2110,7 @@ def phase_line_only(train: dict) -> dict:
     assert cfg.with_line and not cfg.with_dense
     n_val = train["n_val"]
     want = {"k1": 0, "k2": 0, "k2_bwd": 0, "k3": 0, "k4": 0,
-            "matcher_calls": 2 + n_val}
+            "lap_jv": 2 + n_val, "matcher_calls": 2 + n_val}
     log(f"[line-only] main.main 2 steps + eval: {secs:.1f} s, launches {n}")
     assert n == want and state.step == 2, (n, want, state.step)
     logs = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
@@ -1745,7 +2216,7 @@ def _with_args(args, **kv) -> list:
 def _gated_step_expected(remat: bool) -> dict:
     return {"k1": sum(GATED_TRAIN_K1.values()) * (2 if remat else 1),
             "k2": K2_FWD_PER_FORWARD, "k2_bwd": K2_BWD_PER_STEP,
-            "k3": 0, "k4": 0}
+            "k3": 0, "k4": 0, "lap_jv": 1}
 
 
 def gated_train_run(card: str, train: dict, remat: bool) -> dict:
@@ -1776,6 +2247,7 @@ def gated_train_run(card: str, train: dict, remat: bool) -> dict:
     want = {k: v * steps for k, v in per_step.items()}
     want["k1"] += sum(GATED_K1.values()) * n_val
     want["k2"] += K2_FWD_PER_FORWARD * n_val
+    want["lap_jv"] += n_val
     want["matcher_calls"] = steps + n_val
     log(f"[{tag}] main.main 4 steps + eval: {secs:.1f} s, launches {n}, "
         f"expected {want}")
@@ -1997,6 +2469,7 @@ def phase_coco_lines(train: dict) -> dict:
     assert {k: n_train[k] for k in none} == none, n_train
     assert {k: n_eval[k] for k in none} == none, n_eval
     assert n_train["matcher_calls"] == counts["train"] + counts["val"]
+    assert n_train["lap_jv"] == n_train["matcher_calls"], n_train
     cfg = state.model.cfg
     assert cfg.backbone == "resnet101" and not cfg.with_dense
     assert len(state.model.backbone[0].body.layer3) == 23
@@ -2700,7 +3173,9 @@ def phase_export(card: str, tmp: str) -> dict:
     torch.cuda.empty_cache()
     return {**out, "launches": {"k1": sum(l["k1"] for l in res["launches"]),
                                 "k2": sum(l["k2"] for l in res["launches"]),
-                                "k2_bwd": 0, **res["k34"]}}
+                                "k2_bwd": 0, **res["k34"],
+                                # a forward runs no criterion
+                                "lap_jv": 0}}
 
 
 BF16_STEPS = 8                # timed bf16 train steps, after 2 warm-ups
@@ -2789,8 +3264,7 @@ def phase_bf16(card: str, train: dict) -> dict:
     args = _with_args(train["args"], output_dir=out_dir) + \
         ["--bf16", "--epochs", "1"]
     steps, n_val = train["n_train"] // TRAIN_BS, train["n_val"]
-    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    per_step = dict(STEP_COUNTS)
     try:
         torch.cuda.synchronize()
         _reset_counts()
@@ -3189,8 +3663,7 @@ def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
     for r in (tr, al):
         assert r["counts"] == want, (r["counts"], want)
         for c in r["per_step"]:
-            assert c == {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                         "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}, c
+            assert c == STEP_COUNTS, c
     log_equal = tr["log"] == al["log"]
     unequal = [n for n in al["params"]
                if not torch.equal(tr["params"][n], al["params"][n])]
@@ -3269,8 +3742,7 @@ def phase_dp_pair(card: str, train: dict, tmp: str) -> dict:
         with open(os.path.join(d, f"pair{r}.json")) as f:
             pair.append(json.load(f))
     got = torch.load(os.path.join(d, "pair_tensors.pt"))
-    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    per_step = dict(STEP_COUNTS)
     for p in [ref] + pair:
         assert p["counts"] == [per_step] * DP_STEPS, p["counts"]
     # what the ranks counted, each step of each rank the same
@@ -3424,8 +3896,7 @@ def phase_tp_mesh1(card: str, train: dict, tmp: str) -> dict:
     parameters bit-equal; launches over each run and per step."""
     steps = train["n_train"] // TRAIN_BS
     want = _expected_counts(steps, train["n_val"])
-    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    per_step = dict(STEP_COUNTS)
     res, secs = {}, {}
     for label, nproc in (("torchrun", 1), ("alone", 0)):
         d = os.path.join(tmp, f"tp-{label}")
@@ -3490,8 +3961,7 @@ def phase_tp_pair(card: str, train: dict, tmp: str) -> dict:
     one, ranks = load("tp_one"), [load(f"tp_rank{r}") for r in range(2)]
     ref = torch.load(os.path.join(d, "tp_one.pt"))
     got = torch.load(os.path.join(d, "tp_rank0.pt"))
-    per_step = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                "k2_bwd": K2_BWD_PER_STEP, "k3": 0, "k4": 0}
+    per_step = dict(STEP_COUNTS)
     for p in [one] + ranks:
         assert p["counts"] == [per_step] * TP_STEPS, p["counts"]
     assert [r["mesh"] for r in ranks] == [[[1, 2], 0, 0], [[1, 2], 0, 1]]
@@ -3571,6 +4041,7 @@ def main(argv=None) -> None:
     with torch.no_grad():
         k1_sites = phase_k1(rng, dev)
         k2 = phase_k2(rng, dev)
+    matcher = phase_matcher(np.random.default_rng(SEED + 20), dev, card)
     k1 = k1_sites[tuple(K1_SITES[0])]
     k1_n, k2_n, k2_links, k34_n = phase_model(card)
     phase_serve()
@@ -3579,6 +4050,7 @@ def main(argv=None) -> None:
     k2_train, k1_train, k1_gated_bwd = phase_backward(rng, dev)
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
+        loader = phase_loader(card, train)
         evals = phase_eval_outputs(train)
         line_only = phase_line_only(train)
         gated_train = phase_gated_train(card, train)
@@ -3749,11 +4221,33 @@ def main(argv=None) -> None:
          "backward_ms": train_bwd("backward_ms"),
          "plain_convs_ms": train_bwd("plain_convs_ms")},
         *window_kernel_entries(win, k34_n, run, copy_kernels),
+        {"name": "lap_jv", "route": "cuda",
+         "source": "gwdepth_tpu_torch/csrc/lap_jv.cu",
+         "replaces": "gwdepth_tpu/ops/lap.py:105",
+         "launches": run["lap_jv"], "launches_per_step": 1,
+         "max_abs_err": matcher["max_abs_err"],
+         "ms": matcher["kernel_ms"], "plain_ms": matcher["plain_ms"],
+         "bound_ms": matcher["bound_ms"], "bound_by": matcher["bound_by"],
+         "library_ms": None, "device_ms": matcher["device_ms"],
+         "scipy_ms": matcher["scipy_ms"],
+         "scipy_solve_ms": matcher["scipy_solve_ms"],
+         "scipy_copy_ms": matcher["scipy_copy_ms"],
+         "dijkstra_steps": matcher["dijkstra_steps"],
+         "dijkstra_steps_max": matcher["dijkstra_steps_max"],
+         "device_us_per_serial_step": matcher["device_us_per_serial_step"],
+         "criterion_launches": matcher["criterion_launches"],
+         "train_step_ms": {k: train["matchers"][k]["step_ms"]
+                           for k in MATCHER_ORDER},
+         "train_busy_ms": {k: train["matchers"][k]["profile"].get(
+             "device_busy_ms") for k in MATCHER_ORDER},
+         "train_idle_share": {k: train["matchers"][k]["profile"].get(
+             "device_idle_share") for k in MATCHER_ORDER},
+         "train_loss_rel_gap": train["matchers"]["loss_rel_gap"]},
     ]
     # launches on this slice's paths, each counted from 0 over its run
     count_key = {"ref_attn_diffusion": "k1", "conv3x3_ln_act": "k2",
                  "conv3x3_ln_act_backward": "k2_bwd", "window_msa": "k3",
-                 "layout_fence": "k4"}
+                 "layout_fence": "k4", "lap_jv": "lap_jv"}
     for entry in kernels:
         key = count_key[entry["name"]]
         entry["depth_only_launches"] = depth_only["launches"][key]
@@ -3794,8 +4288,18 @@ def main(argv=None) -> None:
         "dx), times the launches per forward or step; "
         "the backward's max_abs_err is scaled by max(1, the "
         "call's largest reference gradient). "
-        f"train step median {train['step_ms']:.3f} ms, host matcher "
-        f"{train['matcher_ms']:.3f} ms. K3 and K4: launches over phase 9's "
+        f"train step median {train['step_ms']:.3f} ms (--matcher jax), "
+        f"host matcher {train['matcher_ms']:.3f} ms (--matcher scipy). "
+        "lap_jv: launches over the first main.main train run (1 a step "
+        "and an eval forward), ms by events and device_ms in a CUDA graph "
+        "per call at 6 layers x bs2 x 100 queries x 96 slots (phase 20), "
+        "plain_ms the plain version on the host, scipy_ms the scipy path "
+        "(copy and host solve), bound_ms the cost rows read; "
+        "train_step_ms / busy / idle with each --matcher, and jax_sync "
+        "(the kernel, then a sync where the scipy path's copy waits) "
+        "(phase 7); "
+        "library_ms null: no PyTorch call solves an assignment. "
+        "K3 and K4: launches over phase 9's "
         "driven calls, model_path_launches in the serving forward and "
         "train_launches in that train run (no model path calls them); "
         "ms, plain_ms, "

@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-lineinfo"]
 KERNELS = ("ref_attn_diffusion", "conv3x3_ln_act", "window_msa",
-           "layout_fence")
+           "layout_fence", "lap_jv")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

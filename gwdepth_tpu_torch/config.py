@@ -73,6 +73,8 @@ class GWDepthConfig:
     depth_loss_weights: Tuple[float, ...] = (0.25, 0.25, 0.25, 1.0)
     seg_loss_weight: float = 2.0
     plane_norm_loss_coef: float = 50.0
+    # "jax": the JV solver (one CUDA kernel launch a criterion call on the
+    # card, its plain version on the CPU) | "scipy": the host solve
     matcher: str = "jax"
 
     # ---- optimization ----

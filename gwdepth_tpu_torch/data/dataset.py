@@ -1,6 +1,8 @@
 """GW-Depth dataset: host-side decode + augmentation + static-canvas collate.
 
-The port's copy of `gwdepth_tpu.data.dataset`, PIL decode only:
+The port's copy of `gwdepth_tpu.data.dataset`; PNG files decode through
+the native loader (`gwdepth_tpu_torch.native`) where it has its decoder,
+else through PIL, with the same bytes:
 
 - name lists from train.txt / val.txt;
 - per sample: RGB png, depth png (/1000 -> meters), seg png (>0 -> 1),
@@ -33,6 +35,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 import numpy as np
 from PIL import Image
 
+from gwdepth_tpu_torch import native
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.data.batch import Batch
 from gwdepth_tpu_torch.data.transforms import (
@@ -40,8 +43,21 @@ from gwdepth_tpu_torch.data.transforms import (
 
 
 def _open_rgb(path: str) -> Image.Image:
-    """Image file -> PIL RGB image."""
+    """Image file -> PIL RGB image, as `Image.open(path).convert("RGB")`."""
+    if path.endswith(".png"):
+        arr = native.decode_png(path, rgb=True)
+        if arr is not None:
+            return Image.fromarray(arr)
     return Image.open(path).convert("RGB")
+
+
+def _open_array(path: str) -> np.ndarray:
+    """Image file -> its raw array, as `np.asarray(Image.open(path))`."""
+    if path.endswith(".png"):
+        arr = native.decode_png(path, rgb=False)
+        if arr is not None:
+            return arr
+    return np.asarray(Image.open(path))
 
 
 def gen_pairs(vertices: np.ndarray) -> np.ndarray:
@@ -96,10 +112,9 @@ class GlassRGBDDataset:
         cfg = self.cfg
         name = self.names[idx]
         image = _open_rgb(os.path.join(cfg.data_path, name + ".png"))
-        depth = np.asarray(Image.open(
-            os.path.join(cfg.gt_depth_path, name + ".png"))).astype(np.int32)
-        seg = np.asarray(Image.open(os.path.join(cfg.gt_seg_path,
-                                                 name + ".png")))
+        depth = _open_array(
+            os.path.join(cfg.gt_depth_path, name + ".png")).astype(np.int32)
+        seg = _open_array(os.path.join(cfg.gt_seg_path, name + ".png"))
         if seg.ndim == 3:
             seg = seg[..., 0]
         with open(os.path.join(cfg.gt_line_path, name + ".json")) as f:

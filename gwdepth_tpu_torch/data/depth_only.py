@@ -17,10 +17,10 @@ import random
 from typing import Dict, Optional
 
 import numpy as np
-from PIL import Image
 
 from gwdepth_tpu_torch.config import GWDepthConfig
-from gwdepth_tpu_torch.data.dataset import _open_rgb, collate_sample
+from gwdepth_tpu_torch.data.dataset import (_open_array, _open_rgb,
+                                            collate_sample)
 from gwdepth_tpu_torch.data.transforms import (Sample, eval_transform,
                                                train_transform)
 
@@ -43,8 +43,8 @@ class DepthOnlyDataset:
         cfg = self.cfg
         rgb_rel, depth_rel = self.pairs[idx]
         image = _open_rgb(os.path.join(self.root, rgb_rel.lstrip("/")))
-        depth = np.asarray(Image.open(os.path.join(
-            self.root, depth_rel.lstrip("/")))).astype(np.int32)
+        depth = _open_array(os.path.join(
+            self.root, depth_rel.lstrip("/"))).astype(np.int32)
         h, w = depth.shape[:2]
         s = Sample(image, depth, np.zeros((h, w), np.uint8),
                    np.zeros((0, 4)), np.zeros((0, 2)),

@@ -1,6 +1,9 @@
 """Joint augmentations of image, lines, centers, depth and seg: the port's
-copy of `gwdepth_tpu.data.transforms`, numpy and PIL only (the PIL path;
-the JAX package's native decoder is bit-exact with it).
+copy of `gwdepth_tpu.data.transforms`. `resize`, `color_jitter` and
+`normalize` call the native loader's entries (`gwdepth_tpu_torch.native`)
+where the JAX package calls its own, and take the PIL/numpy path where
+the library is unavailable or GWDEPTH_NO_NATIVE is set; both paths give
+the same bytes (tests/test_torch_native_loader.py).
 
 Eval: resize the long side to `test_size` (PIL bilinear for the image,
 PIL NEAREST index replay for the depth/seg maps), scale down to fit the
@@ -29,6 +32,8 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 from PIL import Image, ImageEnhance
+
+from gwdepth_tpu_torch import native
 
 # GW-Depth channel stats
 MEAN = np.array([0.538, 0.494, 0.453], np.float32)
@@ -127,7 +132,11 @@ def resize(s: Sample, size, max_size=None) -> Sample:
     s = s.copy()
     oh, ow = _get_resize_hw(s.image.size, size, max_size)
     w0, h0 = s.image.size
-    s.image = s.image.resize((ow, oh), Image.BILINEAR)
+    img = None
+    if s.image.mode == "RGB":
+        img = native.resize_bilinear_rgb8(np.asarray(s.image), oh, ow)
+    s.image = (Image.fromarray(img) if img is not None
+               else s.image.resize((ow, oh), Image.BILINEAR))
     rw, rh = ow / w0, oh / h0
     if len(s.lines):
         s.lines = s.lines * np.array([rw, rh, rw, rh])
@@ -263,7 +272,8 @@ def adjust_hue(img: Image.Image, factor: float,
 def color_jitter(img: Image.Image, rng: random.Random,
                  strength: float = 0.4) -> Image.Image:
     """Brightness/contrast/saturation/hue in a random order, factors
-    U(1-s, 1+s), hue shift U(-s, s) * 255 steps."""
+    U(1-s, 1+s), hue shift U(-s, s) * 255 steps; the native entry where
+    it runs, else PIL, with the same draws on both paths."""
     ops = list(range(4))
     rng.shuffle(ops)
     factors = []
@@ -271,6 +281,10 @@ def color_jitter(img: Image.Image, rng: random.Random,
         f = rng.uniform(1 - strength, 1 + strength)
         factors.append(int(rng.uniform(-strength, strength) * 255)
                        if op == 3 else f)
+    if img.mode == "RGB":
+        out = native.color_jitter(np.asarray(img), ops, factors)
+        if out is not None:
+            return Image.fromarray(out)
     for op, f in zip(ops, factors):
         if op == 0:
             img = ImageEnhance.Brightness(img).enhance(f)
@@ -286,8 +300,13 @@ def color_jitter(img: Image.Image, rng: random.Random,
 def normalize(s: Sample) -> Sample:
     """To float, channel-normalize, coords -> [0, 1]."""
     s = s.copy()
-    img = np.asarray(s.image, np.float32) / 255.0
-    img = (img - MEAN) / STD
+    img = None
+    if getattr(s.image, "mode", None) == "RGB":
+        u8 = np.asarray(s.image)
+        img = native.normalize_pad(u8, u8.shape[:2], MEAN, STD)
+    if img is None:
+        img = np.asarray(s.image, np.float32) / 255.0
+        img = (img - MEAN) / STD
     h, w = img.shape[:2]
     s.image = img
     if len(s.lines):

@@ -53,6 +53,7 @@ def line_set_criterion(
     eos_coef: float,
     set_cost_class: float,
     set_cost_line: float,
+    matcher_backend: str = "jax",
     focal: bool = False,
     focal_gamma: float = 2.0,
     reduce: Reducer = identity,
@@ -63,7 +64,9 @@ def line_set_criterion(
     'aux_outputs': [dicts with the same keys]}; tgt_lines (B, T, D);
     line_mask (B, T) bool. Returns loss_ce, loss_line, cardinality_error,
     then loss_ce_i / loss_line_i per aux layer. Every layer is matched in
-    one host call; the sums of all layers cross `reduce` in one vector."""
+    one `match_lines` call (`matcher_backend` "jax": one launch of the JV
+    kernel on the card, no copy to the host; "scipy": one host solve);
+    the sums of all layers cross `reduce` in one vector."""
     n_valid = line_mask.sum(dim=1)                                # (B,)
     aux = list(outputs.get("aux_outputs", ()))
     logits = torch.stack([outputs["pred_logits"]]
@@ -77,7 +80,8 @@ def line_set_criterion(
                             set_cost_line)
     cost = torch.where(line_mask[None, :, None, :], cost,
                        torch.zeros_like(cost))
-    tgt2q = match_lines(cost, n_valid.expand(L, B))               # (L,B,T)
+    tgt2q = match_lines(cost, n_valid.expand(L, B),
+                        matcher_backend)                          # (L,B,T)
 
     src = torch.gather(lines, 2, tgt2q[..., None].expand(-1, -1, -1, D))
     l1 = (src - tgt_lines).abs().sum(-1) * maskf

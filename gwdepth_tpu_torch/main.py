@@ -58,8 +58,11 @@ which no total includes. `--with_reflection` sets the config flag and
 nothing else: the reflection hints also need
 `glassrgbd_rhint_points_path`, for which neither CLI has a flag. The
 dense encoder's gates `--with_dense_center`, `--with_line_depth` and
-`--class_tokenfuse_layers` reach the model. `--matcher` is accepted with
-either value: the port always solves the assignment exactly on the host.
+`--class_tokenfuse_layers` reach the model. `--matcher` selects the line
+matcher as in the JAX CLI: `jax` (the default) is the Jonker-Volgenant
+solver, one launch of the CUDA kernel `csrc/lap_jv.cu` a criterion call
+on the card with no copy to the host (its plain version on the CPU);
+`scipy` copies the costs to the host and solves them there.
 `--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
 K2) as the JAX CLI routes it through its Pallas kernels; without it the
 model runs their plain float32 formulations, on the card too.
@@ -120,8 +123,8 @@ def build_argparser() -> argparse.ArgumentParser:
     p.add_argument("--eval_freq", type=int, default=1)
     p.add_argument("--matcher", type=str, default="jax",
                    choices=("jax", "scipy"),
-                   help="accepted for compatibility: the port always solves "
-                        "the assignment exactly on the host (scipy)")
+                   help="line matcher: 'jax' the JV solver (the CUDA kernel "
+                        "on the card), 'scipy' the host solve")
     p.add_argument("--use_pallas", action="store_true",
                    help="run the model through kernels K1 and K2 (the "
                         "CUDA kernels on the card)")
@@ -269,6 +272,7 @@ def main(argv=None):
     _refuse(args, cfg)
 
     import torch
+    from gwdepth_tpu_torch import native
     from gwdepth_tpu_torch.data.coco_lines import CocoLinesDataset
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.engine import (evaluate, format_eval_line,
@@ -324,6 +328,7 @@ def main(argv=None):
     n_params = sum(p.numel() for p in model.parameters())
     say(f"model: {n_params / 1e6:.1f}M params, device: {device}, ranks: "
         f"{mesh.world}, mesh: {dict(zip(mesh.axes, mesh.shape))}")
+    say(f"data loader: {native.available().describe()}")
 
     eval_ds = build_dataset("val")
     eval_loader = Loader(eval_ds, batch_size=args.eval_batch_size,

@@ -67,7 +67,7 @@ def compute_losses(cfg: GWDepthConfig, outputs: Dict, batch: Batch,
         ld = line_set_criterion(
             outputs, batch.lines, batch.line_mask,
             eos_coef=cfg.eos_coef, set_cost_class=cfg.set_cost_class,
-            set_cost_line=cfg.set_cost_line,
+            set_cost_line=cfg.set_cost_line, matcher_backend=cfg.matcher,
             focal=cfg.label_loss_func == "focal_loss",
             focal_gamma=cfg.focal_gamma, reduce=reduce)
         for k, v in ld.items():
@@ -209,7 +209,8 @@ def make_eval_step(cfg: GWDepthConfig, return_dense: bool = False
                      "pred_lines": outputs["pred_lines"][i:i + 1]},
                     batch.lines[i:i + 1], batch.line_mask[i:i + 1],
                     eos_coef=cfg.eos_coef, set_cost_class=cfg.set_cost_class,
-                    set_cost_line=cfg.set_cost_line)
+                    set_cost_line=cfg.set_cost_line,
+                    matcher_backend=cfg.matcher)
                 per_img.append(torch.stack([ld["loss_ce"], ld["loss_line"],
                                             ld["cardinality_error"]]))
             res["eval_losses"] = (torch.stack(per_img)

@@ -20,7 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from gwdepth_tpu_torch.losses import criterion as port_crit
 from gwdepth_tpu_torch.ops import fused_conv as port_fc
+from gwdepth_tpu_torch.ops import lap as port_lap
 from gwdepth_tpu_torch.ops import ref_attn_diffusion as port_k1
 from gwdepth_tpu_torch.ops import window_msa as port_wm
 
@@ -808,3 +810,86 @@ def test_k4_fence_reads_strided_views_in_one_launch(dev):
         assert got.is_contiguous() and torch.equal(got, x)
     with pytest.raises(ValueError, match="strided row dims"):
         port_wm._launch_fence(big[::2, ::2, ::2, ::2, ::2])
+
+
+def _lap_problems(seed, shape):
+    """(L, B, Q, T) float32 costs, every other problem rounded to
+    integers (exact ties), n_valid drawn from 0..T with T and 0 present."""
+    L, B, Q, T = shape
+    rng = np.random.default_rng(seed)
+    cost = rng.normal(size=(L * B, Q, T)).astype(np.float32)
+    cost[::2] = np.round(2 * cost[::2])
+    nv = rng.integers(0, T + 1, size=L * B)
+    nv[0] = T
+    nv[-1] = 0 if L * B > 1 else T
+    return (torch.from_numpy(cost.reshape(L, B, Q, T)),
+            torch.from_numpy(nv.reshape(L, B)))
+
+
+@pytest.mark.parametrize("shape", [(6, 2, 100, 96), (3, 1, 7, 5),
+                                   (2, 2, 40, 40), (1, 1, 33, 33),
+                                   # shared memory past 48 KB
+                                   (1, 2, 3000, 8)])
+def test_lap_jv_kernel_equals_plain(dev, shape):
+    """Every problem of the call in one launch; the assignments equal the
+    plain version's (JAX's float32 arithmetic and order, the lowest
+    column on ties) exactly."""
+    cost, nv = _lap_problems(0, shape)
+    before = port_lap.lap_jv.launches
+    got = port_lap.lap_jv(cost.to(dev), nv.to(dev))
+    torch.cuda.synchronize()
+    assert port_lap.lap_jv.launches == before + 1
+    assert got.device.type == "cuda" and got.dtype == torch.int64
+    assert torch.equal(got.cpu(), port_lap.jv_plain(cost, nv))
+    assert torch.equal(port_lap.lap_jv(cost.to(dev), nv.to(dev)), got)
+
+
+def test_lap_jv_kernel_stops_on_non_finite_costs(dev):
+    cost = torch.full((2, 12, 9), float("nan"))
+    cost[1] = float("inf")
+    nv = torch.tensor([9, 9])
+    got = port_lap.lap_jv(cost.to(dev), nv.to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), port_lap.jv_plain(cost, nv))
+
+
+def test_criterion_jv_is_one_launch_without_sync(dev):
+    """The criterion at the shipped shape (6 decoder layers, bs 2, 100
+    queries, 96 slots) with the JV matcher: one kernel launch, no
+    device-to-host copy or sync, the CPU criterion's losses."""
+    rng = np.random.default_rng(3)
+    B, Q, T, D = 2, 100, 96, 6
+
+    def layer():
+        return {"pred_logits": torch.from_numpy(
+                    rng.normal(size=(B, Q, 2)).astype(np.float32)),
+                "pred_lines": torch.from_numpy(
+                    rng.uniform(size=(B, Q, D)).astype(np.float32))}
+
+    out = layer()
+    out["aux_outputs"] = [layer() for _ in range(5)]
+    lines = torch.from_numpy(rng.uniform(size=(B, T, D)).astype(np.float32))
+    mask = torch.zeros((B, T), dtype=torch.bool)
+    mask[0, :37] = True
+    mask[1, :T] = True
+    kw = dict(eos_coef=0.1, set_cost_class=1.0, set_cost_line=5.0,
+              matcher_backend="jax")
+
+    def to(o, d):
+        r = {k: v.to(d) for k, v in o.items() if k != "aux_outputs"}
+        r["aux_outputs"] = [to(a, d) for a in o.get("aux_outputs", [])]
+        return r
+
+    gpu = (to(out, dev), lines.to(dev), mask.to(dev))
+    torch.cuda.synchronize()
+    before = port_lap.lap_jv.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = port_crit.line_set_criterion(*gpu, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert port_lap.lap_jv.launches == before + 1
+    want = port_crit.line_set_criterion(out, lines, mask, **kw)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
+                                   atol=1e-7, msg=k)
