@@ -187,6 +187,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               train_transform and the Loader's images/s at bs2 on each
               path. Where the host has no libpng the library is built
               without its decoder and PIL decodes.
+  22. library (run last) the library modules, which no model path
+              builds, on the card at the shipped config's widths against
+              the port's CPU run (see `phase_library`): TokenFuse, ConvGRU,
+              PyramidConv, NonLocalPlannarGuidance (1/16, 48x64),
+              ReflectionReduce (768x1024 hint), PointTokenAttention and
+              OffsetGeneration (1/32, 24x32, dim 512, 16 heads, 40
+              points), distance_map, _kmeans and sample_by_centers (100
+              queries), the segment samplers and SNE (720x1280); phase 4's
+              limits; discrete choices equal or moved by 1e-7 noise on the
+              CPU too; no kernel launches; ms of each.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -4017,6 +4027,304 @@ def phase_tensor_parallel(card: str, train: dict, tmp: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the library modules
+# ---------------------------------------------------------------------------
+
+# the shipped config's widths, at the grids of the modules' call sites
+LIB_CFG = GWDepthConfig()
+LIB_TC = LIB_CFG.class_token_dim                      # 64
+LIB_LINES = LIB_CFG.num_ref                           # 20 lines
+LIB_P = LIB_CFG.ref_points_per_line                   # 2 points a line
+LIB_CB = LIB_CFG.backbone_channels[2]                 # 1024 ch at 1/16
+LIB_DIM = LIB_CFG.dense_trans_dim                     # 512 at 1/32
+LIB_HEADS = LIB_CFG.dense_trans_heads                 # 16
+LIB_16 = (H_IMG // 16, W_IMG // 16)                   # 48 x 64
+LIB_32 = (H_IMG // 32, W_IMG // 32)                   # 24 x 32
+LIB_QUERIES = 100                                     # sample_by_centers
+SNE_HW = (720, 1280)         # a RealSense frame (tools/raw_capture.py)
+LIB_REPS = 10
+
+
+def _flat_outputs(out) -> list:
+    if isinstance(out, torch.Tensor):
+        return [out]
+    return [t for o in out if o is not None for t in _flat_outputs(o)]
+
+
+def _lib_gaps(card, cpu) -> dict:
+    """Max-abs and relative L2 of every output tensor, card against CPU,
+    at phase 4's limits (LINE_TOL, DENSE_REL_L2_TOL)."""
+    card, cpu = _flat_outputs(card), _flat_outputs(cpu)
+    assert len(card) == len(cpu)
+    gaps = {"max_abs": 0.0, "rel_l2": 0.0}
+    for a, b in zip(card, cpu):
+        a = a.detach().cpu().float()
+        b = b.detach().float()
+        assert a.shape == b.shape and torch.isfinite(a).all()
+        gaps["max_abs"] = max(gaps["max_abs"], float((a - b).abs().max()))
+        gaps["rel_l2"] = max(gaps["rel_l2"], _rel_l2(a, b))
+    return gaps
+
+
+def _held(name: str, card, cpu, control) -> dict:
+    """A discrete choice: equal on the card and the CPU, or, where not,
+    moved on the CPU too by 1e-7 noise on its inputs (the control)."""
+    card, cpu, control = (torch.as_tensor(t).cpu() for t in
+                          (card, cpu, control))
+    rec = {"equal": bool(torch.equal(card, cpu)),
+           "differ": int((card != cpu).sum()),
+           "control_differ": int((control != cpu).sum())}
+    assert rec["equal"] or rec["control_differ"] > 0, \
+        f"[library] {name}: card and CPU choose differently, and 1e-7 " \
+        f"noise moves no choice on the CPU: {rec}"
+    return rec
+
+
+def _noisy(t: torch.Tensor, gen) -> torch.Tensor:
+    return t * (1 + 1e-7 * torch.randn(t.shape, generator=gen))
+
+
+def _lib_module(name, module, args, shapes: str, kwargs=None,
+                reps: int = LIB_REPS) -> dict:
+    """`module` (seeded, perturbed) on the CPU and a copy on the card on
+    the same inputs: every output within phase 4's limits, and the card's
+    median ms by CUDA events."""
+    kwargs = kwargs or {}
+    module = perturb_weights(module.eval(), SEED + 22)
+    card_mod = copy.deepcopy(module).to("cuda")
+    dev_args = [a.to("cuda") if isinstance(a, torch.Tensor) else a
+                for a in args]
+    with torch.no_grad():
+        want = module(*args, **kwargs)
+        got = card_mod(*dev_args, **kwargs)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: card_mod(*dev_args, **kwargs), reps=reps,
+                     warmup=2)
+    gaps = _lib_gaps(got, want)
+    assert gaps["max_abs"] <= LINE_TOL and gaps["rel_l2"] <= \
+        DENSE_REL_L2_TOL, f"[library] {name} card vs CPU {gaps}"
+    rec = {"name": name, "shapes": shapes, "ms": ms, **gaps}
+    return rec, card_mod, want, got
+
+
+def sne_depth(rng):
+    """A RealSense-size frame (SNE_HW): a slanted plane in metres with
+    noise, 5 % zero holes and a zero glass pane; intrinsics with the
+    principal point at the centre, so the upper half has Y <= 0."""
+    H, W = SNE_HW
+    yy, xx = np.mgrid[:H, :W].astype(np.float32)
+    depth = 1.5 + 1e-3 * xx + 2e-3 * yy + 1e-3 * rng.normal(size=(H, W))
+    depth[rng.uniform(size=(H, W)) < 0.05] = 0.0
+    depth[H // 2 + 40:H // 2 + 160, W // 3:W // 2] = 0.0
+    cam = np.array([[910.0, 0, W / 2], [0, 905.0, H / 2], [0, 0, 1]],
+                   np.float32)
+    return torch.from_numpy(depth.astype(np.float32)), torch.from_numpy(cam)
+
+
+def phase_library(card: str) -> dict:
+    """Phase 22: every device module of the library half, which no model
+    path builds, on the card at the shipped config's widths against the
+    port's CPU run of the same seeded, perturbed weights and inputs, TF32
+    off: TokenFuse, ConvGRU, PyramidConv and NonLocalPlannarGuidance at
+    the 1/16 grid (backbone 1024 ch, depth_pred at 1/32),
+    ReflectionReduce on a 768x1024 hint, PointTokenAttention and
+    OffsetGeneration at 1/32 (dim 512, 16 heads, 40 points),
+    distance_map at 1/16, _kmeans and sample_by_centers on 100 queries,
+    sample_along_seg / sample_mid_seg on the 20 lines, and SNE on a
+    720x1280 frame. Float outputs at phase 4's limits (max-abs LINE_TOL,
+    relative L2 DENSE_REL_L2_TOL); discrete choices (k-means labels,
+    selected lines, OffsetGeneration's hull choice, SNE's fallback
+    pixels and ny > 0 flips) equal, or moved by 1e-7 noise on the CPU
+    too. No kernel launches (OffsetGeneration's pyramid runs unfused).
+    The card's ms by CUDA events, medians of LIB_REPS calls."""
+    from gwdepth_tpu_torch.models import geometry, points
+    from gwdepth_tpu_torch.tools.sne import sne_normals
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(SEED + 22)
+    gen = torch.Generator().manual_seed(SEED + 22)
+    torch.manual_seed(SEED + 22)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+
+    def refs(L=LIB_LINES):
+        return torch.from_numpy(rng.uniform(
+            -1, 1, size=(1, L, LIB_P, 2)).astype(np.float32))
+
+    tC, nP = LIB_TC, LIB_LINES * LIB_P
+    h16, h32 = LIB_16, LIB_32
+    recs = []
+    _reset_counts()
+    tok16 = [normal(1, *h16, tC) for _ in range(3)]
+    recs.append(_lib_module(
+        "TokenFuse", geometry.TokenFuse(tC),
+        (tok16[0], tok16[1], refs(), tok16[2]),
+        f"tokens (1, {h16[0]}, {h16[1]}, {tC}), {LIB_LINES}x{LIB_P} "
+        "reference points")[0])
+    recs.append(_lib_module(
+        "ConvGRU", geometry.ConvGRU(tC, nP + 1),
+        (normal(1, *h16, tC), normal(1, *h16, nP + 1)),
+        f"h (1, {h16[0]}, {h16[1]}, {tC}), x {nP + 1} ch")[0])
+    recs.append(_lib_module(
+        "PyramidConv", geometry.PyramidConv(1, 1, 32, 2),
+        (normal(1, *h32, 1),),
+        f"depth (1, {h32[0]}, {h32[1]}, 1) -> {h16}", {"size": h16})[0])
+    recs.append(_lib_module(
+        "NonLocalPlannarGuidance",
+        geometry.NonLocalPlannarGuidance(LIB_CB, tC, nP),
+        (normal(1, *h16, LIB_CB), tok16[0], tok16[1], refs(), tok16[2],
+         torch.sigmoid(normal(1, *h32, 1))),
+        f"backbone (1, {h16[0]}, {h16[1]}, {LIB_CB}), tokens {tC} ch, "
+        f"{nP} points, depth_pred (1, {h32[0]}, {h32[1]}, 1)")[0])
+    sizes = ((H_IMG // 16, W_IMG // 16), (H_IMG // 8, W_IMG // 8),
+             (H_IMG // 4, W_IMG // 4))
+    recs.append(_lib_module(
+        "ReflectionReduce", geometry.ReflectionReduce(),
+        (torch.sigmoid(normal(1, H_IMG, W_IMG, 3)), sizes),
+        f"hint (1, {H_IMG}, {W_IMG}, 3) -> {list(sizes)}")[0])
+    recs.append(_lib_module(
+        "PointTokenAttention",
+        geometry.PointTokenAttention(LIB_DIM, LIB_HEADS, tC),
+        (normal(1, *h32, LIB_DIM), normal(1, nP, tC)),
+        f"x (1, {h32[0]}, {h32[1]}, {LIB_DIM}), {LIB_HEADS} heads, "
+        f"{nP} point tokens of {tC}")[0])
+
+    # OffsetGeneration: the proposals at the float limits, the hull choice
+    # discrete
+    og_args = (normal(1, *h32, LIB_DIM), normal(1, *h32, tC), refs(),
+               normal(1, *h32, LIB_DIM))
+    rec, og_card, want, got = _lib_module(
+        "OffsetGeneration", points.OffsetGeneration(LIB_DIM, tC, nP),
+        og_args, f"x (1, {h32[0]}, {h32[1]}, {LIB_DIM}), tokens {tC} ch, "
+        f"{nP} points, SPP pools (32, 16, 8, 4)")
+    og_cpu = copy.deepcopy(og_card).cpu()
+    with torch.no_grad():
+        card_prop = og_card.proposals(*[a.cuda() for a in og_args])
+        cpu_prop = og_cpu.proposals(*og_args)
+        ctl_prop = og_cpu.proposals(*[_noisy(a, gen) for a in og_args])
+        rec["hull_choice"] = _held(
+            "OffsetGeneration hull choice", og_card.largest_hull(card_prop),
+            og_cpu.largest_hull(cpu_prop), og_cpu.largest_hull(ctl_prop))
+        rec["proposals"] = _lib_gaps(card_prop, cpu_prop)
+        rec["chosen"] = int(og_cpu.largest_hull(cpu_prop)[0])
+        torch.cuda.synchronize()
+        rec["proposals_ms"] = time_ms(lambda: og_card.proposals(
+            *[a.cuda() for a in og_args]), reps=LIB_REPS, warmup=2)
+    assert rec["proposals"]["max_abs"] <= LINE_TOL, rec
+    recs.append(rec)
+
+    # the pure functions; a discrete result is held as a choice, its
+    # control the CPU on inputs x (1 + 1e-7 noise)
+    def pure(name, fn, args, shapes, choice=None):
+        with torch.no_grad():
+            want = fn(*args)
+            dev_args = [a.cuda() for a in args]
+            got = fn(*dev_args)
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: fn(*dev_args), reps=LIB_REPS, warmup=2)
+            r = {"name": name, "shapes": shapes, "ms": ms}
+            if choice is None:
+                r.update(_lib_gaps(got, want))
+                assert r["max_abs"] <= LINE_TOL and \
+                    r["rel_l2"] <= DENSE_REL_L2_TOL, r
+            else:
+                noisy = [_noisy(a, gen) for a in args]
+                r["choice"] = _held(name, choice(got, args),
+                                    choice(want, args),
+                                    choice(fn(*noisy), noisy))
+        recs.append(r)
+
+    with torch.no_grad():
+        want = geometry.distance_map(*h16)
+        got = geometry.distance_map(*h16, device="cuda")
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: geometry.distance_map(*h16, device="cuda"),
+                     reps=LIB_REPS, warmup=2)
+    rec = {"name": "distance_map", "shapes": f"{h16} grid", "ms": ms,
+           **_lib_gaps(got, want)}
+    assert rec["max_abs"] <= LINE_TOL, rec
+    recs.append(rec)
+
+    def selected(out, args):
+        """The indices of the selected lines among the input lines."""
+        lines = args[1].to(out.device)
+        d = (out[:, :, None, :] - lines[:, None, :, :]).abs().sum(-1)
+        return d.argmin(-1).cpu()
+
+    Q = LIB_QUERIES
+    centers = torch.from_numpy(rng.uniform(size=(1, Q, 2)).astype(
+        np.float32))
+    lines = torch.from_numpy(rng.uniform(size=(1, Q, 4)).astype(np.float32))
+    pure("_kmeans", lambda c: geometry._kmeans(c, 16), (centers[0],),
+         f"{Q} points, 16 clusters, 20 iterations",
+         choice=lambda out, args: out.cpu())
+    pure("sample_by_centers",
+         lambda c, li, lo: geometry.sample_by_centers(c, li, lo, H_IMG,
+                                                      W_IMG),
+         (centers, lines, normal(1, Q, 2)),
+         f"{Q} queries at {H_IMG}x{W_IMG}: 16 clusters, top 6, 50 lines",
+         choice=selected)
+    seg = refs()
+    pure("sample_along_seg",
+         lambda s: points.sample_along_seg(s, H_IMG, W_IMG), (seg,),
+         f"{LIB_LINES} lines, 10 points each, {H_IMG}x{W_IMG}")
+    pure("sample_mid_seg", points.sample_mid_seg, (seg,),
+         f"{LIB_LINES} lines")
+
+    n = _counts()
+    assert all(n[k] == 0 for k in ("k1", "k2", "k2_bwd", "k3", "k4",
+                                   "lap_jv")), \
+        f"[library] the library modules launched kernels: {n}"
+
+    # SNE on a RealSense frame: the fallback pixels and the ny > 0 flips
+    # are discrete choices, the normals floats
+    depth, cam = sne_depth(rng)
+    with torch.no_grad():
+        want = sne_normals(depth, cam)
+        d_card, cam_card = depth.cuda(), cam.cuda()
+        got = sne_normals(d_card, cam_card)
+        ctl = sne_normals(_noisy(depth, gen), cam)
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: sne_normals(d_card, cam_card), reps=LIB_REPS,
+                     warmup=2)
+
+    def fallback(n):
+        return ((n[0] == 0) & (n[1] == 0) & (n[2] == -1)).cpu()
+
+    def flipped(a, b):
+        """Pixels where one normal is the other's negation (the ny > 0
+        flip taken on one side only)."""
+        a, b = a.cpu(), b.cpu()
+        return ((a + b).abs().amax(0) <= LINE_TOL) & \
+            ((a - b).abs().amax(0) > LINE_TOL)
+
+    got_c = got.cpu()
+    flips = flipped(got_c, want)
+    rec = {"name": "sne_normals", "ms": ms,
+           "shapes": f"depth {SNE_HW[0]}x{SNE_HW[1]}, 5 % holes, the "
+                     "upper half Y <= 0",
+           "fallback_pixels": int(fallback(want).sum()),
+           "fallback": _held("sne fallback pixels", fallback(got),
+                             fallback(want), fallback(ctl)),
+           "flips": int(flips.sum()),
+           "control_flips": int(flipped(ctl, want).sum())}
+    assert rec["flips"] == 0 or rec["control_flips"] > 0, rec
+    keep = ~flips
+    rec.update(_lib_gaps(got_c[:, keep], want[:, keep]))
+    assert rec["max_abs"] <= LINE_TOL and \
+        rec["rel_l2"] <= DENSE_REL_L2_TOL, rec
+    recs.append(rec)
+
+    secs = time.perf_counter() - t0
+    for r in recs:
+        log("[library] " + json.dumps(r))
+    log(f"[library] phase 22 took {secs:.1f} s; ms by CUDA events on "
+        f"{card}")
+    return {"modules": recs, "seconds": secs, "launches": n}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp-role",
@@ -4061,6 +4369,7 @@ def main(argv=None) -> None:
         tp = phase_tensor_parallel(card, train, tmp)
     phase_train_card_vs_cpu()
     win = phase_window_attention(rng)
+    library = phase_library(card)
 
     missing = [key for key in k2_links if key not in k2]
     assert not missing, f"main-path K2 links not timed: {missing}"
@@ -4392,6 +4701,10 @@ def main(argv=None) -> None:
         f"GiB (float32 {bf16['f32_peak_bytes'] / 2**30:.2f}); forward "
         f"{bf16['forward_ms']:.3f} ms, busy {bf16['forward_busy_ms']}; "
         f"first loss {json.dumps(bf16['first_loss'])} on {card}")
+    log(f"[library] {len(library['modules'])} library modules and "
+        f"functions held against the CPU in {library['seconds']:.1f} s, "
+        f"launches {json.dumps(library['launches'])}; ms: " + json.dumps(
+            {r["name"]: r["ms"] for r in library["modules"]}) + f" on {card}")
     log(f"[total] chip_smoke wall time "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -29,6 +29,10 @@ and `point_depth_token`, `init_token` and `gpgN.*`.
 
 Integer buffers (`relative_position_index`) pass through from the
 template; any float tensor the map does not reach raises.
+
+The library modules, which no model builds, map one module at a time
+from their own JAX param trees, by the same layout rules
+(`library_params_to_state_dict`).
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from typing import Dict, Mapping
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 # ---------------------------------------------------------------------------
 # forward map: original torch names -> flax param paths
@@ -286,15 +291,14 @@ def _get(tree, path):
     return node
 
 
-@functools.lru_cache(maxsize=None)
-def _invert_key(key: str, shape):
-    """[(flax_path, index_map)] for one torch tensor, index_map[i] being the
-    torch flat index stored at flat position i of the flax leaf; None when
-    the map does not consume the whole tensor bijectively. Cached: it
-    depends on the key and shape only (callers do not modify it)."""
+def _probe(forward, key: str, shape):
+    """[(flax_path, index_map)] for one torch tensor under the forward map
+    `forward`, index_map[i] being the torch flat index stored at flat
+    position i of the flax leaf; None when the map does not consume the
+    whole tensor bijectively."""
     size = int(np.prod(shape)) if shape else 1
     probe = np.arange(size, dtype=np.float64).reshape(shape)
-    overlay = torch_names_to_flax({key: probe})
+    overlay = forward({key: probe})
     entries = []
     covered = np.zeros(size, dtype=bool)
     for path, leaf in _leaves(overlay):
@@ -310,19 +314,31 @@ def _invert_key(key: str, shape):
     return entries
 
 
+@functools.lru_cache(maxsize=None)
+def _invert_key(key: str, shape):
+    """`_probe` of the whole model's map. Cached: it depends on the key and
+    shape only (callers do not modify it)."""
+    return _probe(torch_names_to_flax, key, shape)
+
+
 def jax_params_to_state_dict(params, template: Mapping[str, torch.Tensor]
                              ) -> Dict[str, torch.Tensor]:
     """Fill `template`'s keys (a port model's `state_dict()`, or a prefixed
     part of one) from `params` (the JAX GlassRGBD param tree as nested
     dicts of numpy arrays). Integer buffers pass through; an unmapped or
     missing float tensor raises KeyError."""
+    return _fill(params, template, _invert_key)
+
+
+def _fill(params, template: Mapping[str, torch.Tensor],
+          invert) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for key, tval in template.items():
         if not torch.is_floating_point(tval):
             out[key] = tval.clone()
             continue
         shape = tuple(tval.shape)
-        entries = _invert_key(key, shape)
+        entries = invert(key, shape)
         if entries is None:
             raise KeyError(f"no JAX param maps onto {key}")
         dest = np.empty(int(np.prod(shape)) if shape else 1, np.float64)
@@ -333,3 +349,46 @@ def jax_params_to_state_dict(params, template: Mapping[str, torch.Tensor]
             dest[idx] = np.asarray(leaf, dtype=np.float64).ravel()
         out[key] = torch.from_numpy(dest.reshape(shape)).to(tval.dtype)
     return out
+
+
+# ---------------------------------------------------------------------------
+# the library modules (models/geometry.py, models/points.py), one at a time
+# ---------------------------------------------------------------------------
+
+def library_names_to_flax(module: nn.Module,
+                          state: Mapping[str, np.ndarray]) -> dict:
+    """A library module's tensors -> its own flax param tree. The port
+    names each layer as the JAX module does, so a tensor goes to the path
+    of its layer's name by the layer's kind (conv, linear, norm), and
+    inside a `PyramidLayer` by the point heads' map."""
+    from gwdepth_tpu_torch.models.points import PyramidLayer
+
+    put = {nn.Conv2d: _put_conv, nn.Linear: _put_linear,
+           nn.LayerNorm: _put_norm}
+    params: dict = {}
+    for key, val in state.items():
+        parts = key.split(".")
+        for i in range(1, len(parts)):
+            if isinstance(module.get_submodule(".".join(parts[:i])),
+                          PyramidLayer):
+                _map_pyramid(params, "/".join(parts[:i]), parts[i:], val)
+                break
+        else:
+            layer = module.get_submodule(".".join(parts[:-1]))
+            put[type(layer)](params, "/".join(parts[:-1]), parts[-1], val)
+    return params
+
+
+def library_params_to_state_dict(params, module: nn.Module
+                                 ) -> Dict[str, torch.Tensor]:
+    """`module.state_dict()` filled from its JAX counterpart's param tree
+    (`init(...)["params"]`, nested dicts of numpy arrays), for the library
+    modules: geometry's `TokenFuse`, `ConvGRU`, `PyramidConv`,
+    `NonLocalPlannarGuidance`, `ReflectionReduce` and
+    `PointTokenAttention`, and points' `OffsetGeneration`.
+
+        module.load_state_dict(library_params_to_state_dict(p, module))
+    """
+    forward = functools.partial(library_names_to_flax, module)
+    return _fill(params, module.state_dict(),
+                 lambda key, shape: _probe(forward, key, shape))

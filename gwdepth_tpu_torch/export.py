@@ -105,6 +105,19 @@ def load_exported(path: str) -> Callable:
     return call
 
 
+def orbax_refusal(resume: str) -> str:
+    """The message for a `--resume` directory without `checkpoint.pth`,
+    such as the JAX package's orbax directories: how to convert one."""
+    return (f"--resume {resume}: no checkpoint.pth. The port reads its own "
+            "torch.save checkpoints, not the JAX package's orbax "
+            "directories; convert one in two steps:\n"
+            f"  1. python -m gwdepth_tpu.convert.export_torch --resume "
+            f"{resume} --template T.pth --out X.pth\n"
+            "     (T.pth: any checkpoint of this port's main.py, or an "
+            "original-code .pth, of the same model config)\n"
+            "  2. --torch_init X.pth")
+
+
 def load_weights(model: torch.nn.Module, resume: str,
                  torch_init: str) -> Optional[str]:
     """`--torch_init`: an original-code `.pth` through
@@ -129,10 +142,7 @@ def load_weights(model: torch.nn.Module, resume: str,
         if os.path.isdir(path):
             path = CheckpointManager(path).latest()
             if path is None:
-                raise SystemExit(
-                    f"--resume {resume}: no checkpoint.pth (the port reads "
-                    "its own torch.save checkpoints, not the JAX package's "
-                    "orbax directories)")
+                raise SystemExit(orbax_refusal(resume))
         restore_file(SimpleNamespace(model=model), path, params_only=True)
         return path
     return None

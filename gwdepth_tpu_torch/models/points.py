@@ -11,15 +11,26 @@
 - `PointBasedPred`: depth = sum over points of softmax(pyramid(global x
   refer)) * anchor depth, with the original's `dim**-2` scale.
 
+The library half, which no model path builds:
+- `OffsetGeneration`: every location of the map proposes
+  `num_ref_points / 2` points; the location whose proposals span the
+  largest convex hull (scipy on the host, the one copy off the device)
+  adds its points to the reference coords. Its `PyramidLayer` runs
+  unfused, as the JAX module builds it, so it launches no kernel.
+- `sample_along_seg` / `sample_mid_seg`: extra points along each line.
+
 Names follow the original PyTorch code: `firstconv.{0,2}`,
 `layerK.J.conv1.0` / `layerK.J.conv2`, `branchK.1`, `lastconv.{0,2}`, and
-ConvLn's `conv` / `layer_norm`.
+ConvLn's `conv` / `layer_norm`; `OffsetGeneration` carries the JAX
+package's names (`channel_attention_fc`, `backbone_fc0`, `goff0`..`goff6`,
+`refer_proj`, `pyramid`).
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -41,6 +52,12 @@ def conv2d_nhwc(x: torch.Tensor, w: torch.Tensor, b=None, padding: int = 0,
     y = F.conv2d(x.permute(0, 3, 1, 2), w, b, padding=padding,
                  dilation=dilation)
     return y.permute(0, 2, 3, 1)
+
+
+def conv_nhwc(c: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`c` applied to an NHWC tensor, with its own padding and dilation."""
+    return conv2d_nhwc(x, c.weight, c.bias, padding=c.padding[0],
+                       dilation=c.dilation[0])
 
 
 # ---------------------------------------------------------------------------
@@ -230,3 +247,139 @@ class PointBasedPred(nn.Module):
         rg = self.pyramid(rg.to(x.dtype))
         attn = torch.softmax(rg.float(), dim=-1)
         return torch.einsum("bhws,bs->bhw", attn, anchor.float())
+
+
+# ---------------------------------------------------------------------------
+# offset generation and extra points along segments (library)
+# ---------------------------------------------------------------------------
+
+def _hull_areas_host(pts: np.ndarray) -> np.ndarray:
+    """(..., n, 2) -> (...) convex-hull areas, scipy on the host; a
+    degenerate (collinear) set has area 0."""
+    from scipy.spatial import ConvexHull, QhullError
+
+    flat = pts.reshape(-1, *pts.shape[-2:])
+    out = np.zeros(flat.shape[0], np.float32)
+    for i, p in enumerate(flat):
+        try:
+            out[i] = ConvexHull(p).volume      # in 2-D the volume is the area
+        except QhullError:
+            out[i] = 0.0
+    return out.reshape(pts.shape[:-2])
+
+
+class OffsetGeneration(nn.Module):
+    """Extra reference points: token channel attention over the backbone
+    features, a dilated conv tower, and per location `num_ref_points / 2`
+    proposed points from a `PyramidLayer` over the correlation with the
+    current reference points; the location whose proposals span the
+    largest convex hull adds them, grouped P a line. The reference coords
+    must hold L * P = `num_ref_points` points, the pyramid's planes."""
+
+    def __init__(self, x_dim: int, token_dim: int, num_ref_points: int,
+                 pool_sizes: Tuple[int, ...] = (32, 16, 8, 4)):
+        super().__init__()
+        tC = token_dim
+        self.x_dim, self.token_dim = x_dim, tC
+        self.num_ref_points = num_ref_points
+        self.channel_attention_fc = nn.Linear(tC, tC)
+        self.backbone_norm = nn.LayerNorm(x_dim, eps=1e-5)
+        self.backbone_fc0 = nn.Conv2d(x_dim, x_dim // 2, 3, padding=1)
+        self.backbone_fc1 = nn.Conv2d(x_dim // 2, tC, 1)
+        self.global_norm = nn.LayerNorm(tC, eps=1e-5)
+        h2, h4 = tC // 2, tC // 4
+        for name, ci, co, k, dil in (
+                ("goff0", tC, h2, 1, 1), ("goff1", h2, h2, 3, 1),
+                ("goff2", h2, h2, 3, 6), ("goff3", h2, h2, 3, 16),
+                ("goff4", h2, h2, 3, 1), ("goff5", h2, h4, 1, 1),
+                ("goff6", h4, h4, 1, 1)):
+            setattr(self, name, nn.Conv2d(ci, co, k, padding=dil * (k // 2),
+                                          dilation=dil))
+        self.refer_proj = nn.Linear(x_dim, h4)
+        self.pyramid = PyramidLayer(num_ref_points, pool_sizes,
+                                    use_pallas=False)
+
+    def forward(self, x: torch.Tensor, depth_token: torch.Tensor,
+                refer_coords: torch.Tensor,
+                token_pos: Optional[torch.Tensor]) -> torch.Tensor:
+        """x (B, H, W, x_dim); depth_token (B, H, W, tC); refer_coords
+        (B, L, P, 2) in [-1, 1]; token_pos (B, H, W, x_dim) or None (the
+        JAX module's `with_pos=False`). Returns
+        (B, L + num_ref_points / (2 P), P, 2)."""
+        B, P = x.shape[0], refer_coords.shape[2]
+        coords = self.proposals(x, depth_token, refer_coords, token_pos)
+        best = self.largest_hull(coords)
+        chosen = coords[torch.arange(B, device=coords.device), best]
+        chosen = chosen.reshape(B, -1, P, 2) * 2.0 - 1.0
+        return torch.cat([refer_coords, chosen], dim=1)
+
+    def largest_hull(self, coords: torch.Tensor) -> torch.Tensor:
+        """(B, HW, num_ref_points) proposals -> (B,) the location whose
+        points span the largest hull. The one copy off the device: the
+        areas come from the host; argmax keeps the first of equal areas,
+        as jnp.argmax."""
+        B, HW, _ = coords.shape
+        pts = coords.detach().reshape(B, HW, self.num_ref_points // 2, 2)
+        areas = torch.from_numpy(_hull_areas_host(pts.cpu().numpy()))
+        return torch.argmax(areas.to(coords.device), dim=-1)
+
+    def proposals(self, x, depth_token, refer_coords, token_pos):
+        """Every location's proposed points, (B, H*W, num_ref_points) in
+        [0, 1], the arguments as `forward`'s."""
+        B, H, W, _ = x.shape
+        ch = torch.softmax(F.gelu(self.channel_attention_fc(depth_token)),
+                           dim=-1)
+        xs = self.backbone_norm(x)
+        xo = F.gelu(conv_nhwc(self.backbone_fc0, xs))
+        xo = F.gelu(conv_nhwc(self.backbone_fc1, xo))
+        xo = self.global_norm(ch * xo + xo)
+        g = F.gelu(conv_nhwc(self.goff0, xo))
+        for name in ("goff1", "goff2", "goff3", "goff4", "goff5"):
+            g = conv_nhwc(getattr(self, name), g)
+        g = conv_nhwc(self.goff6, F.gelu(g))
+
+        # bilinear samples at the current reference points
+        refer_x = grid_sample_nhwc(xs, refer_coords)
+        if token_pos is not None:
+            refer_x = refer_x + grid_sample_nhwc(token_pos, refer_coords)
+        refer_x = self.refer_proj(refer_x.reshape(B, -1, self.x_dim))
+        ref_g = torch.einsum("bnc,bhwc->bhwn", refer_x, g).to(x.dtype)
+        return torch.sigmoid(self.pyramid(ref_g).reshape(B, H * W, -1))
+
+
+def sample_along_seg(lines: torch.Tensor, height: int, width: int,
+                     sample_num_seg: int = 10) -> torch.Tensor:
+    """Append `sample_num_seg` evenly spaced points along each segment.
+    lines (B, L, 2, 2) in [-1, 1] -> (B, L, 2 + sample_num_seg, 2). The
+    steps start from the leftmost endpoint (the first of equal x), and y
+    moves by |dy| / n with the sign of (y_end - y_start), as the
+    original."""
+    scale = torch.tensor([width, height], dtype=lines.dtype,
+                         device=lines.device)
+    px = (lines + 1.0) / 2.0 * scale
+    st_id = torch.argmin(px[..., 0], dim=2)                 # (B, L)
+    end_id = torch.argmax(px[..., 0], dim=2)
+
+    def pick(i):
+        return torch.gather(px, 2, i[..., None, None].expand(
+            -1, -1, 1, 2))[:, :, 0]
+
+    st, end = pick(st_id), pick(end_id)
+    dist = torch.sqrt(((st - end) ** 2).sum(-1))
+    safe = torch.clamp(dist, min=1e-12)
+    cosv = torch.abs(st[..., 0] - end[..., 0]) / safe
+    sinv = torch.abs(st[..., 1] - end[..., 1]) / safe
+    seg = dist / sample_num_seg
+    row_oper = torch.where(st[..., 1] < end[..., 1], 1.0, -1.0).to(px.dtype)
+    steps = torch.arange(1, sample_num_seg + 1, dtype=px.dtype,
+                         device=px.device)
+    p_x = st[..., 0, None] + (seg * cosv)[..., None] * steps
+    p_y = st[..., 1, None] + (seg * sinv * row_oper)[..., None] * steps
+    allp = torch.cat([px, torch.stack([p_x, p_y], dim=-1)], dim=2)
+    return allp / scale * 2.0 - 1.0
+
+
+def sample_mid_seg(lines: torch.Tensor) -> torch.Tensor:
+    """Append each segment's midpoint: (B, L, 2, 2) -> (B, L, 3, 2)."""
+    mid = (lines[:, :, 0] + lines[:, :, 1]) / 2.0
+    return torch.cat([lines, mid[:, :, None]], dim=2)

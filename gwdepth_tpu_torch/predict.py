@@ -19,7 +19,11 @@ K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
 
 Weights: `--torch_init` an original-code `.pth`, or `--resume` a
 checkpoint of the port's `main.py` (its `checkpoint.pth`, or the
-directory holding it); the JAX package's orbax directories are refused.
+directory holding it). The JAX package's orbax directories are refused
+with the two steps that bring one over: `python -m
+gwdepth_tpu.convert.export_torch --resume DIR --template T.pth --out
+X.pth` (T.pth any checkpoint of the port's `main.py`), then
+`--torch_init X.pth`.
 
 `--mesh N` serves data-parallel under torchrun with N ranks
 (`torchrun --nproc_per_node N -m gwdepth_tpu_torch.predict --mesh N

@@ -56,9 +56,13 @@ def test_port_files_found():
                 "data/batch.py", "data/dataset.py", "tools/synthetic.py",
                 "utils/logging.py", "utils/checkpoint.py",
                 "ops/window_msa.py", "parallel/mesh.py",
-                "data/depth_only.py"):
+                "data/depth_only.py", "models/geometry.py",
+                "models/points.py", "tools/sne.py",
+                "tools/depth_completion.py", "tools/reflection.py",
+                "tools/raw_capture.py", "tools/pred_compare.py",
+                "utils/profiling.py"):
         assert f"gwdepth_tpu_torch/{rel}" in PORT_FILES, rel
-    assert len(PORT_FILES) >= 35
+    assert len(PORT_FILES) >= 41
 
 
 @pytest.mark.parametrize("rel", PORT_FILES)
