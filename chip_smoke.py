@@ -187,7 +187,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               train_transform and the Loader's images/s at bs2 on each
               path. Where the host has no libpng the library is built
               without its decoder and PIL decodes.
-  22. library (run last) the library modules, which no model path
+  22. library (run before phase 23) the library modules, which no model path
               builds, on the card at the shipped config's widths against
               the port's CPU run (see `phase_library`): TokenFuse, ConvGRU,
               PyramidConv, NonLocalPlannarGuidance (1/16, 48x64),
@@ -197,6 +197,21 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               queries), the segment samplers and SNE (720x1280); phase 4's
               limits; discrete choices equal or moved by 1e-7 noise on the
               CPU too; no kernel launches; ms of each.
+  23. dispatch (run last) the asynchronous dispatch: after warm-up, the
+              shipped serving forward (in a process of its own), one
+              --matcher jax train step (phase 7's batch) and one gated
+              step (GATED_CFG with phase 14's flags) each under sync-debug
+              mode "error" (a synchronizing call raises), after a census
+              in mode "warn" (`tools/dispatch_census.py`) that counts 0;
+              the forward's host-to-device copies in the profiler: its
+              input's only; then 2 epochs of
+              `engine.train_one_epoch` (prefetch from pinned batches, the
+              log drain one window late) and of the plain loop (the batch
+              copied in the step, each window drained at once) over phase
+              7's scenes under deterministic algorithms: meters and final
+              weights equal bit for bit; step period by CUDA events, busy
+              time and idle share of each. Phase 7 asserts 0 synchronizing
+              calls in its step too.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -1246,6 +1261,7 @@ def _expected_counts(steps: int, eval_forwards: int) -> dict:
 
 def phase_train(card: str, tmp: str):
     from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.tools.dispatch_census import train_args
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.tools.synthetic import generate_dataset
 
@@ -1256,12 +1272,7 @@ def phase_train(card: str, tmp: str):
     log(f"[train] {n_train}+{n_val} synthetic scenes at 720x1280 in "
         f"{time.perf_counter() - t0:.1f} s")
     out = os.path.join(tmp, "exp")
-    args = ["--device", "cuda", "--use_pallas", "--with_line", "--with_dense",
-            "--with_center", "--num_workers", "4", "--output_dir", out,
-            "--data_path", f"{root}/rgb", "--gt_depth_path", f"{root}/depth",
-            "--gt_seg_path", f"{root}/seg", "--gt_line_path", f"{root}/lines",
-            "--filenames_file_train", f"{root}/train.txt",
-            "--filenames_file_eval", f"{root}/val.txt"]
+    args = train_args(root, out)
     cfg = train_main.config_from_args(train_main.build_argparser()
                                       .parse_args(args))
     assert cfg.train_hw == TRAIN_HW and cfg.batch_size == TRAIN_BS
@@ -1383,24 +1394,13 @@ def sync_sites(cfg, state, batch) -> dict:
     """The synchronizing calls of one --matcher jax train step that
     PyTorch's sync-debug mode sees, counted by the Python line that made
     them (the backward's run on autograd's thread, under its caller):
-    the 12 commonest and the total."""
+    the 12 commonest and the total (`tools/dispatch_census.py`)."""
     from gwdepth_tpu_torch.parallel import make_train_step
+    from gwdepth_tpu_torch.tools.dispatch_census import sync_sites as census
 
     step = make_train_step(cfg.replace(matcher="jax"))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    torch.cuda.synchronize()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        try:
-            step(state, batch, gen)
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
-    sites = collections.Counter(
-        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message))
-    return {"total": sum(sites.values()), "top": sites.most_common(12)}
+    return census(lambda: step(state, batch, gen))
 
 
 @contextlib.contextmanager
@@ -1499,6 +1499,8 @@ def train_matchers(cfg, state, batches, card: str) -> dict:
     out["sync_sites"] = sync_sites(cfg, state, batches[0])
     log(f"[train] --matcher jax: synchronizing calls of one step by "
         f"caller (sync-debug mode 'warn'): {json.dumps(out['sync_sites'])}")
+    # the tables live on the card (ops/tables.py): none after warm-up
+    assert out["sync_sites"]["total"] == 0, out["sync_sites"]
     del saved
     torch.cuda.empty_cache()
     out["loss_rel_gap"] = gap
@@ -4325,6 +4327,186 @@ def phase_library(card: str) -> dict:
     return {"modules": recs, "seconds": secs, "launches": n}
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the asynchronous dispatch
+# ---------------------------------------------------------------------------
+
+DISPATCH_EPOCHS = 2
+
+
+def plain_epoch(state, train_step, loader, epoch, generator, device,
+                logger):
+    """The train loop without the asynchronous dispatch, as the CPU test
+    `tests/test_torch_dispatch.py` writes it: each batch copied to the
+    device in the step, each print window drained at once."""
+    pending = []
+
+    def flush():
+        mat = torch.stack(pending).cpu().numpy() if pending else []
+        pending.clear()
+        for row in mat:
+            scal = dict(zip(train_step.log_keys, row.tolist()))
+            if not np.isfinite(scal["loss"]):
+                raise FloatingPointError(scal["loss"])
+            logger.update(**scal)
+
+    for batch, _ in logger.log_every(loader.epoch(epoch), "plain",
+                                     total=len(loader), before_print=flush):
+        state, vec = train_step(state, batch.to(device), generator)
+        pending.append(vec)
+    flush()
+    return state, {k: m.global_avg for k, m in logger.meters.items()}
+
+
+def dispatch_epochs(cfg, cpu_model, loop: str) -> dict:
+    """DISPATCH_EPOCHS epochs of `loop` ("engine": `engine.train_one_epoch`
+    with prefetch and the late drain; "plain": `plain_epoch`) over phase
+    7's scenes from `cpu_model`'s weights, a print window a step: the
+    meters, the final weights, the step period on the device (CUDA events
+    after each step, without a sync), and a profile of the last epoch."""
+    from gwdepth_tpu_torch import engine
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+    from gwdepth_tpu_torch.tools.dispatch_census import profiled
+    from gwdepth_tpu_torch.utils.logging import MetricLogger
+
+    loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                    seed=SEED, num_workers=4)
+    holder = [create_train_state(cfg, copy.deepcopy(cpu_model).to("cuda"),
+                                 steps_per_epoch=len(loader))]
+    step = make_train_step(cfg)
+    ends = []
+
+    def timed_step(state, batch, gen):
+        out = step(state, batch, gen)
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends[-1].append(ev)
+        return out
+
+    timed_step.log_keys = step.log_keys
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    logger = MetricLogger(print_freq=1)
+    dev = torch.device("cuda")
+    prof = {}
+    for epoch in range(DISPATCH_EPOCHS):
+        ends.append([])
+
+        def run():
+            if loop == "engine":
+                holder[0], _ = engine.train_one_epoch(
+                    holder[0], timed_step, loader, epoch, gen, dev,
+                    logger=logger)
+            else:
+                holder[0], _ = plain_epoch(holder[0], timed_step, loader,
+                                           epoch, gen, dev, logger)
+
+        if epoch == DISPATCH_EPOCHS - 1:
+            prof = profiled(run, host=False)
+        else:
+            run()
+    torch.cuda.synchronize()
+    periods = [a.elapsed_time(b) for ep in ends for a, b in zip(ep, ep[1:])]
+    steps = len(ends[-1])
+    step_ms = float(np.median(periods))
+    rec = {"step_ms": step_ms, "periods_ms": periods,
+           "busy_ms_per_step": prof.get("device_busy_ms", float("nan"))
+           / steps}
+    rec["idle_share"] = max(0.0, 1.0 - rec["busy_ms_per_step"] / step_ms)
+    meters = {k: (list(m.deque), m.total, m.count)
+              for k, m in logger.meters.items()}
+    weights = {k: v.detach().clone()
+               for k, v in holder[0].model.state_dict().items()}
+    return {"record": rec, "meters": meters, "weights": weights,
+            "state": holder[0]}
+
+
+def phase_dispatch(card: str, train: dict) -> dict:
+    """Phase 23: after one warm-up call each, the shipped serving forward
+    (in a process of its own, `tools/dispatch_census.py --forward`, with
+    its busy time and host-to-device copies: its input's only), one
+    --matcher jax train step (phase 7's batch) and
+    one gated step (phase 14's GATED_CFG with its flags) under sync-debug
+    mode "error" (a synchronizing call raises; nothing catches it), each
+    after a census in mode "warn" that must count 0 (the train step from
+    the engine loop's state below, after its epochs); DISPATCH_EPOCHS
+    epochs of `engine.train_one_epoch` (prefetch, the late drain) and of
+    the plain loop over phase 7's 8 scenes, both under deterministic
+    algorithms: the same meters and final weights, bit for bit; the step
+    period, busy time and idle share of each."""
+    from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+    from gwdepth_tpu_torch.tools import dispatch_census as dc
+
+    t0 = time.perf_counter()
+    # the forward in a process of its own (after the earlier phases'
+    # profiling sessions this process's profiler recorded no copies),
+    # while this one builds the train models on the host; no wall time is
+    # taken there (phase 4 has the forward's median)
+    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
+    proc = subprocess.Popen([sys.executable, dc.__file__, "--forward"],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, env=env)
+    try:
+        cfg, cpu_model, batch = dc.train_setup(train["args"])
+        gcfg, g_model, g_batch = dc.train_setup(
+            train["args"] + GATED_TRAIN_FLAGS, lambda c: c.replace(
+                group_attention_layers=GATED_CFG["group_attention_layers"]))
+        out, err = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    assert proc.returncode == 0, out[-3000:] + err[-3000:]
+    census = {"forward": json.loads(out.strip().splitlines()[-1])["forward"]}
+    fwd = census["forward"]
+    log(f"[dispatch] forward in its own process, beside the train models' "
+        f"set-up: {time.perf_counter() - t0:.1f} s")
+    # the steps' medians, busy times and idle shares are phase 7's and
+    # phase 14's; here each step must not synchronize
+    g_state = create_train_state(gcfg, g_model.to("cuda"))
+    g_step = make_train_step(gcfg)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    census["gated_step"] = {"sync_sites": dc.no_sync_after_warmup(
+        lambda: g_step(g_state, g_batch, gen))}
+    del g_state, g_model, g_batch
+    torch.cuda.empty_cache()
+
+    with deterministic_algorithms(), warnings.catch_warnings(
+            record=True) as caught:
+        warnings.simplefilter("always")
+        loops = {loop: dispatch_epochs(cfg, cpu_model, loop)
+                 for loop in ("engine", "plain")}
+    nondeterministic = sorted({str(w.message)[:160] for w in caught
+                               if "deterministic" in str(w.message)})
+    # the shipped step from the engine loop's trained state
+    del loops["plain"]["state"]
+    state, step = loops["engine"].pop("state"), make_train_step(cfg)
+    census["train_step"] = {"sync_sites": dc.no_sync_after_warmup(
+        lambda: step(state, batch, gen))}
+    del state, batch
+    torch.cuda.empty_cache()
+    for name, rec in census.items():
+        log(f"[dispatch] {name}: " + json.dumps(rec))
+        assert rec["sync_sites"]["total"] == 0, (name, rec["sync_sites"])
+    # the input's copy only (the profiler saw the forward's kernels)
+    assert not fwd.get("device_busy_ms") or fwd["h2d_copies"] == 1, fwd
+    e, p = loops["engine"], loops["plain"]
+    same_weights = all(torch.equal(e["weights"][k], p["weights"][k])
+                       for k in p["weights"])
+    log(f"[dispatch] {DISPATCH_EPOCHS} epochs, engine.train_one_epoch vs "
+        f"the plain loop (deterministic algorithms; without one: "
+        f"{nondeterministic}): meters equal {e['meters'] == p['meters']}, "
+        f"final weights equal {same_weights}; engine "
+        f"{json.dumps(e['record'])}; plain {json.dumps(p['record'])} on "
+        f"{card}")
+    assert e["meters"] == p["meters"], (e["meters"], p["meters"])
+    assert same_weights
+    secs = time.perf_counter() - t0
+    log(f"[dispatch] phase 23 took {secs:.1f} s")
+    return {"census": census, "engine": e["record"], "plain": p["record"],
+            "seconds": secs}
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp-role",
@@ -4367,9 +4549,10 @@ def main(argv=None) -> None:
         bf16 = phase_bf16(card, train)
         dp = phase_data_parallel(card, train, tmp)
         tp = phase_tensor_parallel(card, train, tmp)
-    phase_train_card_vs_cpu()
-    win = phase_window_attention(rng)
-    library = phase_library(card)
+        phase_train_card_vs_cpu()
+        win = phase_window_attention(rng)
+        library = phase_library(card)
+        dispatch = phase_dispatch(card, train)
 
     missing = [key for key in k2_links if key not in k2]
     assert not missing, f"main-path K2 links not timed: {missing}"
@@ -4705,6 +4888,17 @@ def main(argv=None) -> None:
         f"functions held against the CPU in {library['seconds']:.1f} s, "
         f"launches {json.dumps(library['launches'])}; ms: " + json.dumps(
             {r["name"]: r["ms"] for r in library["modules"]}) + f" on {card}")
+    for name, rec in dispatch["census"].items():
+        log(f"[dispatch] {name}: synchronizing calls "
+            f"{rec['sync_sites']['total']} (none under sync-debug mode "
+            f"'error'), device busy {rec.get('device_busy_ms')} ms, host "
+            f"cudaStreamSynchronize {rec.get('stream_sync_ms')} ms, "
+            f"host-to-device copies {rec.get('h2d_copies')} on {card}")
+    for loop in ("engine", "plain"):
+        r = dispatch[loop]
+        log(f"[dispatch] {loop} loop: step period median {r['step_ms']:.3f}"
+            f" ms, busy {r['busy_ms_per_step']:.3f} ms a step, idle share "
+            f"{r['idle_share']:.4f} on {card}")
     log(f"[total] chip_smoke wall time "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

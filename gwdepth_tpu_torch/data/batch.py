@@ -37,6 +37,15 @@ class Batch:
         return Batch(*(getattr(self, f).to(device, non_blocking=non_blocking)
                        for f in FIELDS))
 
+    def pin_memory(self) -> "Batch":
+        """The batch in page-locked host memory, from which a copy to a
+        card runs asynchronously. Raises where pinning fails: no path
+        falls back to pageable memory."""
+        return self.map(lambda t: t.pin_memory())
+
+    def is_pinned(self) -> bool:
+        return all(getattr(self, f).is_pinned() for f in FIELDS)
+
     def map(self, fn) -> "Batch":
         """A batch of `fn(field)` for every field."""
         return Batch(*(fn(getattr(self, f)) for f in FIELDS))

@@ -268,7 +268,12 @@ class Loader:
         lb = len(idxs) // self.world
         return idxs[self.rank * lb:(self.rank + 1) * lb]
 
-    def epoch(self, epoch: int = 0) -> Iterator[Tuple[Batch, List[str]]]:
+    def epoch(self, epoch: int = 0, pin_memory: bool = False
+              ) -> Iterator[Tuple[Batch, List[str]]]:
+        """This rank's (batch, names) of epoch `epoch`. `pin_memory` pins
+        each batch in the worker thread before it enters the queue, so
+        that a copy to a card runs asynchronously and the consumer never
+        pins; a pinning failure reaches the consumer as an exception."""
         n = len(self.ds)
         order = np.arange(n)
         if self.shuffle:
@@ -305,7 +310,9 @@ class Loader:
                                if isinstance(v, np.ndarray)}
                         pad["name"] = ""
                         samples += [pad] * (n_share - len(samples))
-                    q.put((make_batch(samples), names))
+                    batch = make_batch(samples)
+                    q.put((batch.pin_memory() if pin_memory else batch,
+                           names))
             q.put(None)
 
         def worker_guard():

@@ -1,34 +1,48 @@
 """Epoch-level train and eval loops.
 
-The port of `gwdepth_tpu/engine.py`. PyTorch runs eagerly, so the loop
-calls the step per batch. The step's log vector stays on the device until
-the print window ends: then the window's vectors cross to the host in one
-copy, feed the meters, and a non-finite loss stops training, as the
-original's per-step check does (here within one print window). Eval sums
-its accumulators on the device and moves them to the host after the
-loop, with the line outputs that the benchmark dumps and line overlays
-need; the dense prediction grids cost one more copy per batch.
+The port of `gwdepth_tpu/engine.py`, with its asynchronous dispatch.
+PyTorch runs eagerly, so the loop calls the step per batch; nothing in
+the loop waits for the card:
+
+- `device_prefetch` issues the next batch's copy to the device before
+  the current step runs, from pinned memory on a copy stream of its own
+  (the loader's worker thread pins), as `jax.device_put` dispatches
+  ahead in the JAX package; the step's stream waits on the copy's event,
+  never the host.
+- The step's log vectors stay on the device until the print window
+  ends. Then the window's vectors are stacked and their copy into pinned
+  host memory starts, and the PREVIOUS window is drained into the meters
+  once its copy's event has completed, as the JAX package's loop drains
+  one window late. Every value reaches the meters in order, and a
+  non-finite loss stops training within two print windows.
+
+Eval sums its accumulators on the device and moves them to the host after
+the loop, with the line outputs that the benchmark dumps and line
+overlays need; the dense prediction grids cost one more copy per batch.
+The pictures read the loader's host batch, not a copy back from the card.
 
 Over data-parallel ranks (`mesh`) each rank steps on its part of every
-global batch; the logs are already global. Eval sums its accumulators
-over the ranks, gathers the line dumps to rank 0 in dataset order, and
-each rank writes its own images' dense and line pictures; only rank 0
-writes the training-input overlay. On a `(data, model)` mesh every sum
-and gather runs over the data group, and of the M ranks that hold the
-same images only model rank 0 writes their pictures, so each data
-coordinate counts and writes once.
+global batch, prefetched to its own device; the logs are already global.
+Eval sums its accumulators over the ranks, gathers the line dumps to rank
+0 in dataset order, and each rank writes its own images' dense and line
+pictures; only rank 0 writes the training-input overlay. On a `(data,
+model)` mesh every sum and gather runs over the data group, and of the M
+ranks that hold the same images only model rank 0 writes their pictures,
+so each data coordinate counts and writes once.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 import os
-from typing import Callable, Dict, Optional
+from typing import Callable, Dict, Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
 from gwdepth_tpu_torch.config import GWDepthConfig
+from gwdepth_tpu_torch.data.batch import FIELDS, Batch
 from gwdepth_tpu_torch.evaluation.line_metrics import softmax
 from gwdepth_tpu_torch.parallel.mesh import DataMesh, make_mesh
 from gwdepth_tpu_torch.parallel.train_step import (summarize_depth,
@@ -36,6 +50,51 @@ from gwdepth_tpu_torch.parallel.train_step import (summarize_depth,
 from gwdepth_tpu_torch.utils.logging import MetricLogger
 from gwdepth_tpu_torch.utils.visualize import (save_dense_pred, show_labels,
                                                vis_pred_lines)
+
+
+def device_prefetch(it: Iterable, device, lookahead: int = 1
+                    ) -> Iterator[Tuple[Batch, Batch, list]]:
+    """Yield (device batch, host batch, names) for each (host batch,
+    names) of `it`, the copies of the next `lookahead` batches already
+    issued: the port of the JAX package's `device_prefetch`. On a card
+    the host batches must be pinned (`Batch.pin_memory`; the loader pins
+    with `pin_memory=True`): each copy runs with `non_blocking=True` on a
+    copy stream, and the batch is yielded once the current stream has
+    been told to wait for it. On the CPU the device batch is the host
+    batch."""
+    dev = torch.device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    queue = collections.deque()
+
+    def issue(host: Batch):
+        if stream is None:
+            return host.to(dev), None
+        if not host.is_pinned():
+            raise ValueError("device_prefetch copies to a card from pinned "
+                             "memory only: pin the batch (Batch.pin_memory, "
+                             "Loader.epoch(pin_memory=True))")
+        with torch.cuda.stream(stream):
+            moved = host.to(dev, non_blocking=True)
+            copied = torch.cuda.Event()
+            copied.record(stream)
+        return moved, copied
+
+    def ready(item):
+        moved, copied, host, names = item
+        if copied is not None:
+            current = torch.cuda.current_stream(dev)
+            current.wait_event(copied)
+            for f in FIELDS:
+                # the copy stream allocated it; the current stream uses it
+                getattr(moved, f).record_stream(current)
+        return moved, host, names
+
+    for host, names in it:
+        queue.append((*issue(host), host, names))
+        if len(queue) > lookahead:
+            yield ready(queue.popleft())
+    while queue:
+        yield ready(queue.popleft())
 
 
 def train_one_epoch(state, train_step: Callable, loader, epoch: int,
@@ -46,35 +105,60 @@ def train_one_epoch(state, train_step: Callable, loader, epoch: int,
     saves the first batch's label overlay, `input_epoch{epoch}.png`, once
     per epoch (the original's training-input check)."""
     logger = logger or MetricLogger(print_freq=10)
+    dev = torch.device(device)
     pending = []
+    inflight = []
 
-    def flush():
-        if not pending:
+    def drain():
+        """The window in flight into the meters, once its copy is done:
+        this waits on the copy's event, not on the device."""
+        if not inflight:
             return
-        mat = torch.stack(pending).cpu().numpy()
-        pending.clear()
-        for row in mat:
+        host, copied = inflight.pop()
+        if copied is not None:
+            copied.synchronize()
+        for row in host.numpy():
             scal = dict(zip(train_step.log_keys, row.tolist()))
             if not math.isfinite(scal["loss"]):
                 raise FloatingPointError(
                     f"Loss is {scal['loss']}, stopping training")
             logger.update(**scal)
 
+    def flush():
+        """Start this window's copy to the host, then drain the previous
+        window."""
+        started = None
+        if pending:
+            stacked = torch.stack(pending)
+            pending.clear()
+            started = (stacked, None)
+            if stacked.is_cuda:
+                host = torch.empty(stacked.shape, dtype=stacked.dtype,
+                                   pin_memory=True)
+                host.copy_(stacked, non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(torch.cuda.current_stream(stacked.device))
+                started = (host, copied)
+        drain()
+        if started is not None:
+            inflight.append(started)
+
     first = True
-    for batch, _names in logger.log_every(loader.epoch(epoch),
-                                          f"Epoch: [{epoch}]",
-                                          total=len(loader),
-                                          before_print=flush):
+    stream = device_prefetch(loader.epoch(epoch,
+                                          pin_memory=dev.type == "cuda"), dev)
+    for batch, host, _names in logger.log_every(stream, f"Epoch: [{epoch}]",
+                                                total=len(loader),
+                                                before_print=flush):
         if first and vis_dir is not None and logger.is_main:
-            # the loader's batch is still on the host
-            show_labels(batch.images[0].numpy(),
-                        batch.lines[0][batch.line_mask[0]].numpy(),
+            show_labels(host.images[0].numpy(),
+                        host.lines[0][host.line_mask[0]].numpy(),
                         os.path.join(vis_dir, f"input_epoch{epoch}.png"),
                         with_center=with_center)
         first = False
-        state, log_vec = train_step(state, batch.to(device), generator)
+        state, log_vec = train_step(state, batch, generator)
         pending.append(log_vec)
     flush()
+    drain()     # the last window is still in flight after flush()
     # no `synchronize_between_processes`: every rank's log vectors are
     # already the global ones, so a sum over ranks would leave each
     # global_avg as it is
@@ -110,8 +194,11 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
     if mesh.model_rank:
         # model rank 0 of this data coordinate writes the same pictures
         save_dense_dir = save_line_dir = None
-    for bi, (batch, batch_names) in enumerate(loader.epoch(0)):
-        res = eval_step(model, batch.to(device))
+    dev = torch.device(device)
+    stream = device_prefetch(loader.epoch(0, pin_memory=dev.type == "cuda"),
+                             dev)
+    for bi, (batch, host, batch_names) in enumerate(stream):
+        res = eval_step(model, batch)
         if cfg.with_dense:
             cur = {k: res[k] for k in ("depth_sums", "confusion",
                                        "eval_losses", "eval_loss_count")
@@ -122,8 +209,8 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
             depth = res["pred_depth_full"].cpu().numpy()
             seg = res["pred_seg_cls"].cpu().numpy()
             for i, name in enumerate(batch_names):
-                save_dense_pred(depth[i], batch.depth[i].numpy(), seg[i],
-                                batch.seg[i].numpy(), batch.images[i].numpy(),
+                save_dense_pred(depth[i], host.depth[i].numpy(), seg[i],
+                                host.seg[i].numpy(), host.images[i].numpy(),
                                 os.path.join(save_dense_dir, f"{name}.png"),
                                 max_depth=cfg.max_depth)
         if keep_lines:
@@ -133,8 +220,8 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
             line_out.append([res[k][:n] for k in ("pred_logits",
                                                   "pred_lines", "extent")])
             if save_line_dir is not None:
-                gts += [(batch.lines[i].numpy(), batch.line_mask[i].numpy(),
-                         batch.images[i].numpy()) for i in range(n)]
+                gts += [(host.lines[i].numpy(), host.line_mask[i].numpy(),
+                         host.images[i].numpy()) for i in range(n)]
     if acc:
         # every accumulator summed over ranks in one all_reduce
         keys = sorted(acc)

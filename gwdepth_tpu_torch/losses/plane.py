@@ -17,10 +17,12 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from gwdepth_tpu_torch.losses.criterion import Reducer, identity
+from gwdepth_tpu_torch.ops.tables import device_table
 
 SOBEL_KX = ((1.0, 0.0, -1.0), (2.0, 0.0, -2.0), (1.0, 0.0, -1.0))
 SOBEL_KY = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
@@ -29,8 +31,8 @@ SOBEL_KY = ((1.0, 2.0, 1.0), (0.0, 0.0, 0.0), (-1.0, -2.0, -1.0))
 def sobel_grad(depth: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, H, W) -> (dx, dy): the Sobel kernels as a cross-correlation with
     zero SAME padding, in float32."""
-    k = torch.tensor((SOBEL_KX, SOBEL_KY), dtype=torch.float32,
-                     device=depth.device)[:, None]           # (2, 1, 3, 3)
+    k = device_table("sobel", lambda: np.array(
+        (SOBEL_KX, SOBEL_KY), np.float32), depth.device)[:, None]  # (2,1,3,3)
     out = F.conv2d(depth.float()[:, None], k, padding=1)
     return out[:, 0], out[:, 1]
 
@@ -81,7 +83,8 @@ def plane_norm_loss(depth_pred: torch.Tensor, pred_lines: torch.Tensor,
     tri = torch.gather(pred_lines.float(), 1,
                        ids[..., None].expand(-1, -1, pred_lines.shape[-1]))
     tri_score = torch.gather(score, 1, ids)                 # (B, R)
-    scale = torch.tensor([W, H], dtype=torch.float32, device=tri.device)
+    scale = device_table(("plane_scale", W, H), lambda: np.array(
+        [W, H], np.float32), tri.device)
     tri = torch.round(tri.reshape(B, num_ref, 3, 2) * scale)   # half to even
     tri = torch.stack([tri[..., 0].clamp(0, W - 1),
                        tri[..., 1].clamp(0, H - 1)], -1)

@@ -65,6 +65,7 @@ from gwdepth_tpu_torch.models.swin import Mlp
 from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
 from gwdepth_tpu_torch.ops.interpolate import (resize_bilinear_nhwc,
                                                resize_nearest_nhwc)
+from gwdepth_tpu_torch.ops.tables import device_table
 
 
 class ConvA(nn.Module):
@@ -471,7 +472,8 @@ def _kmeans(points: torch.Tensor, num_clusters: int,
     distance go to the lower centre."""
     N = points.shape[0]
     order = torch.argsort(points[:, 0], stable=True)
-    idx = torch.from_numpy(_linspace_idx(N, num_clusters)).to(points.device)
+    idx = device_table(("linspace_idx", N, num_clusters),
+                       lambda: _linspace_idx(N, num_clusters), points.device)
     centers = points[order[idx]]
 
     def labels_of(centers):

@@ -40,6 +40,7 @@ from gwdepth_tpu_torch.ops.grid_sample import grid_sample_nhwc
 from gwdepth_tpu_torch.ops.interpolate import (avg_pool_matmul_nhwc,
                                                resize_bilinear,
                                                resize_bilinear_matmul_nhwc)
+from gwdepth_tpu_torch.ops.tables import device_table
 
 # widest concat whose `last0` link still goes through the fused kernel
 # (the 1/8 site, 300 channels; the 1/4 site's 800 stays a plain conv)
@@ -354,8 +355,8 @@ def sample_along_seg(lines: torch.Tensor, height: int, width: int,
     steps start from the leftmost endpoint (the first of equal x), and y
     moves by |dy| / n with the sign of (y_end - y_start), as the
     original."""
-    scale = torch.tensor([width, height], dtype=lines.dtype,
-                         device=lines.device)
+    scale = device_table(("seg_scale", width, height), lambda: np.array(
+        [width, height], np.float32), lines.device, lines.dtype)
     px = (lines + 1.0) / 2.0 * scale
     st_id = torch.argmin(px[..., 0], dim=2)                 # (B, L)
     end_id = torch.argmax(px[..., 0], dim=2)

@@ -3,7 +3,9 @@ JAX package agree index-for-index.
 
 torch 'nearest' takes src = floor(dst * in/out); bilinear follows torch's
 align_corners rules. Index and weight tables are computed in float32 with
-numpy, as the JAX package computes them, and cached per shape.
+numpy, as the JAX package computes them, once per shape; each reaches
+the device once (`ops/tables.py`), as XLA folds the JAX package's tables
+into its program.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from gwdepth_tpu_torch.ops.tables import device_table
+
 
 @functools.lru_cache(maxsize=None)
 def _nearest_idx(out_len: int, in_len: int) -> np.ndarray:
@@ -21,23 +25,25 @@ def _nearest_idx(out_len: int, in_len: int) -> np.ndarray:
     return np.minimum(src, in_len - 1)
 
 
-def _idx(table: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(table).to(device)
+def nearest_idx(out_len: int, in_len: int, device) -> torch.Tensor:
+    """`_nearest_idx` on `device`."""
+    return device_table(("nearest", out_len, in_len),
+                        lambda: _nearest_idx(out_len, in_len), device)
 
 
 def resize_nearest(x: torch.Tensor, size) -> torch.Tensor:
     """(..., H, W) -> (..., size[0], size[1]) with torch-nearest indices."""
     H, W = x.shape[-2], x.shape[-1]
-    iy = _idx(_nearest_idx(size[0], H), x.device)
-    ix = _idx(_nearest_idx(size[1], W), x.device)
+    iy = nearest_idx(size[0], H, x.device)
+    ix = nearest_idx(size[1], W, x.device)
     return x.index_select(-2, iy).index_select(-1, ix)
 
 
 def resize_nearest_nhwc(x: torch.Tensor, size) -> torch.Tensor:
     """(B, H, W, C) -> (B, size[0], size[1], C), torch-nearest indices."""
     _, H, W, _ = x.shape
-    iy = _idx(_nearest_idx(size[0], H), x.device)
-    ix = _idx(_nearest_idx(size[1], W), x.device)
+    iy = nearest_idx(size[0], H, x.device)
+    ix = nearest_idx(size[1], W, x.device)
     return x.index_select(1, iy).index_select(2, ix)
 
 
@@ -56,20 +62,31 @@ def _src_coords(out_len: int, in_len: int, align_corners: bool):
     return i0, i1, (f - i0.astype(np.float32)).astype(np.float32)
 
 
+def lerp_table(out_len: int, in_len: int, align_corners: bool, device,
+               dtype: torch.dtype):
+    """`_src_coords` on `device`: (i0, i1) int64 and the weights in
+    `dtype`."""
+    key = ("lerp", out_len, in_len, align_corners)
+
+    def part(i):
+        return lambda: _src_coords(out_len, in_len, align_corners)[i]
+
+    return (device_table(key + (0,), part(0), device),
+            device_table(key + (1,), part(1), device),
+            device_table(key + (2,), part(2), device, dtype))
+
+
 def resize_bilinear(x: torch.Tensor, size,
                     align_corners: bool = False) -> torch.Tensor:
     """(..., H, W) -> (..., Ho, Wo), torch bilinear semantics."""
     H, W = x.shape[-2], x.shape[-1]
-    y0, y1, wy = _src_coords(size[0], H, align_corners)
-    x0, x1, wx = _src_coords(size[1], W, align_corners)
-    dev = x.device
-    wy = torch.from_numpy(wy).to(dev, x.dtype)
-    wx = torch.from_numpy(wx).to(dev, x.dtype)
-    top = x.index_select(-2, _idx(y0, dev))
-    bot = x.index_select(-2, _idx(y1, dev))
+    y0, y1, wy = lerp_table(size[0], H, align_corners, x.device, x.dtype)
+    x0, x1, wx = lerp_table(size[1], W, align_corners, x.device, x.dtype)
+    top = x.index_select(-2, y0)
+    bot = x.index_select(-2, y1)
     row = top + (bot - top) * wy[:, None]
-    left = row.index_select(-1, _idx(x0, dev))
-    right = row.index_select(-1, _idx(x1, dev))
+    left = row.index_select(-1, x0)
+    right = row.index_select(-1, x1)
     return left + (right - left) * wx
 
 
@@ -77,17 +94,14 @@ def resize_bilinear_nhwc(x: torch.Tensor, size,
                          align_corners: bool = False) -> torch.Tensor:
     """(B, H, W, C) -> (B, Ho, Wo, C), torch bilinear semantics."""
     _, H, W, _ = x.shape
-    y0, y1, wy = _src_coords(size[0], H, align_corners)
-    x0, x1, wx = _src_coords(size[1], W, align_corners)
-    dev = x.device
-    wy = torch.from_numpy(wy).to(dev, x.dtype)[None, :, None, None]
-    wx = torch.from_numpy(wx).to(dev, x.dtype)[None, :, None]
-    top = x.index_select(1, _idx(y0, dev))
-    bot = x.index_select(1, _idx(y1, dev))
-    row = top + (bot - top) * wy
-    left = row.index_select(2, _idx(x0, dev))
-    right = row.index_select(2, _idx(x1, dev))
-    return left + (right - left) * wx
+    y0, y1, wy = lerp_table(size[0], H, align_corners, x.device, x.dtype)
+    x0, x1, wx = lerp_table(size[1], W, align_corners, x.device, x.dtype)
+    top = x.index_select(1, y0)
+    bot = x.index_select(1, y1)
+    row = top + (bot - top) * wy[None, :, None, None]
+    left = row.index_select(2, x0)
+    right = row.index_select(2, x1)
+    return left + (right - left) * wx[None, :, None]
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,12 +133,25 @@ def _pool_matrix(in_len: int, k: int) -> np.ndarray:
     return M
 
 
-def _separable(x: torch.Tensor, My: np.ndarray, Mx: np.ndarray) -> torch.Tensor:
-    Ry = torch.from_numpy(My).to(x.device)
-    Rx = torch.from_numpy(Mx).to(x.device)
+def _separable(x: torch.Tensor, Ry: torch.Tensor,
+               Rx: torch.Tensor) -> torch.Tensor:
     y = torch.einsum("hH,bHWc->bhWc", Ry, x.float())
     y = torch.einsum("wW,bhWc->bhwc", Rx, y)
     return y.to(x.dtype)
+
+
+def lerp_matrix(out_len: int, in_len: int, align_corners: bool,
+                device) -> torch.Tensor:
+    """`_lerp_matrix` on `device`."""
+    return device_table(("lerp_matrix", out_len, in_len, align_corners),
+                        lambda: _lerp_matrix(out_len, in_len, align_corners),
+                        device)
+
+
+def pool_matrix(in_len: int, k: int, device) -> torch.Tensor:
+    """`_pool_matrix` on `device`."""
+    return device_table(("pool_matrix", in_len, k),
+                        lambda: _pool_matrix(in_len, k), device)
 
 
 def resize_bilinear_matmul_nhwc(x: torch.Tensor, size,
@@ -132,11 +159,12 @@ def resize_bilinear_matmul_nhwc(x: torch.Tensor, size,
     """Bilinear resize as two separable matmuls, the same lerp weights as
     `resize_bilinear_nhwc`."""
     _, H, W, _ = x.shape
-    return _separable(x, _lerp_matrix(size[0], H, align_corners),
-                      _lerp_matrix(size[1], W, align_corners))
+    return _separable(x, lerp_matrix(size[0], H, align_corners, x.device),
+                      lerp_matrix(size[1], W, align_corners, x.device))
 
 
 def avg_pool_matmul_nhwc(x: torch.Tensor, k: int) -> torch.Tensor:
     """Non-overlapping k x k average pool as two separable matmuls."""
     _, H, W, _ = x.shape
-    return _separable(x, _pool_matrix(H, k), _pool_matrix(W, k))
+    return _separable(x, pool_matrix(H, k, x.device),
+                      pool_matrix(W, k, x.device))

@@ -8,6 +8,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch.ops.tables import device_table
+
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
     """(B, H, W, C) -> (B * nH * nW, ws*ws, C). H, W multiples of ws."""
@@ -52,8 +54,10 @@ def shifted_window_attn_mask(Hp: int, Wp: int, ws: int, shift: int,
                              neg: float = -100.0,
                              device=None) -> torch.Tensor:
     """Additive attention bias (nW, ws*ws, ws*ws): 0 within one shifted
-    region, `neg` across regions."""
-    return torch.from_numpy(_mask_np(Hp, Wp, ws, shift, neg)).to(device)
+    region, `neg` across regions; built once per shape and device
+    (`ops/tables.py`)."""
+    return device_table(("sw_mask", Hp, Wp, ws, shift, neg),
+                        lambda: _mask_np(Hp, Wp, ws, shift, neg), device)
 
 
 def pad_to_window_multiple(x: torch.Tensor, ws: int) -> torch.Tensor:

@@ -893,3 +893,58 @@ def test_criterion_jv_is_one_launch_without_sync(dev):
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-6,
                                    atol=1e-7, msg=k)
+
+
+def test_device_prefetch_copies_pinned_batches_without_a_sync(dev):
+    """`engine.device_prefetch` on the card: pinned batches arrive in
+    order and equal, with no synchronizing call; an unpinned batch
+    raises."""
+    from gwdepth_tpu_torch.config import tiny_test_config
+    from gwdepth_tpu_torch.data.batch import FIELDS, dummy_batch
+    from gwdepth_tpu_torch.engine import device_prefetch
+
+    cfg = tiny_test_config()
+    items = [(dummy_batch(cfg, 2, seed=i).pin_memory(), [f"s{i}"])
+             for i in range(4)]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = list(device_prefetch(iter(items), dev))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert len(got) == len(items)
+    for (moved, host, names), (want, want_names) in zip(got, items):
+        assert names == want_names and host is want
+        for f in FIELDS:
+            assert torch.equal(getattr(moved, f).cpu(), getattr(want, f)), f
+    with pytest.raises(ValueError):
+        next(device_prefetch(iter([(dummy_batch(cfg, 1), ["x"])]), dev))
+
+
+def test_tables_reach_the_card_once(dev):
+    """After a first call of each shape, the resizes and the shifted-window
+    mask run under sync-debug mode "error", and equal the CPU's."""
+    from gwdepth_tpu_torch.ops import interpolate as interp
+    from gwdepth_tpu_torch.ops import window as pwindow
+
+    x = torch.from_numpy(np.random.default_rng(0).normal(
+        size=(1, 24, 32, 4)).astype(np.float32))
+
+    def run(t):
+        return (interp.resize_nearest_nhwc(t, (48, 64)),
+                interp.resize_bilinear_nhwc(t, (48, 64), align_corners=True),
+                interp.resize_bilinear_matmul_nhwc(t, (48, 64), True),
+                interp.avg_pool_matmul_nhwc(t, 4),
+                pwindow.shifted_window_attn_mask(28, 35, 7, 3,
+                                                 device=t.device))
+
+    xd = x.to(dev)
+    run(xd)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = run(xd)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for g, w in zip(got, run(x)):
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-6, atol=1e-6)

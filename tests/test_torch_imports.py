@@ -60,7 +60,8 @@ def test_port_files_found():
                 "models/points.py", "tools/sne.py",
                 "tools/depth_completion.py", "tools/reflection.py",
                 "tools/raw_capture.py", "tools/pred_compare.py",
-                "utils/profiling.py"):
+                "utils/profiling.py", "ops/tables.py",
+                "tools/dispatch_census.py"):
         assert f"gwdepth_tpu_torch/{rel}" in PORT_FILES, rel
     assert len(PORT_FILES) >= 41
 
