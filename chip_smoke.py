@@ -134,7 +134,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               bf16 step's loss within 0.1 |f32| + 0.05 of the float32
               step's; the bf16 forward card vs CPU at 128x192 (see
               `_bf16_card_vs_cpu`). Then full float32 precision again.
-  18. data parallel  (a) `main.main --mesh -1 --use_pallas` for 2 epochs
+  18. data parallel  (a) `main.main --mesh -1 --use_pallas` for 1 epoch
               on phase 7's scenes, in a process of its own under
               `torch.distributed.run --standalone --nproc_per_node 1`
               (NCCL, one rank) and alone, both under deterministic
@@ -197,21 +197,44 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               queries), the segment samplers and SNE (720x1280); phase 4's
               limits; discrete choices equal or moved by 1e-7 noise on the
               CPU too; no kernel launches; ms of each.
-  23. dispatch (run last) the asynchronous dispatch: after warm-up, the
-              shipped serving forward (in a process of its own), one
-              --matcher jax train step (phase 7's batch) and one gated
-              step (GATED_CFG with phase 14's flags) each under sync-debug
-              mode "error" (a synchronizing call raises), after a census
-              in mode "warn" (`tools/dispatch_census.py`) that counts 0;
-              the forward's host-to-device copies in the profiler: its
-              input's only; then 2 epochs of
+  23. dispatch  the asynchronous dispatch: 2 epochs of
               `engine.train_one_epoch` (prefetch from pinned batches, the
               log drain one window late) and of the plain loop (the batch
               copied in the step, each window drained at once) over phase
               7's scenes under deterministic algorithms: meters and final
               weights equal bit for bit; step period by CUDA events, busy
-              time and idle share of each. Phase 7 asserts 0 synchronizing
-              calls in its step too.
+              time and idle share of each. Its census (the serving
+              forward, the --matcher jax step and the gated step, after
+              warm-up, each with a census in sync-debug mode "warn"
+              (`tools/dispatch_census.py`) that counts 0 and a call under
+              mode "error", where a synchronizing call raises; the
+              forward's host-to-device copies in the profiler: its
+              input's only) runs on the graphed paths in phase 24's
+              process. Phase 7 asserts 0 synchronizing calls in its step
+              too.
+  24. graphs (run after phase 23, in a process of its own) the compiled
+              entry points: the serving forward (bs1 768x1024,
+              `use_pallas`), the eval step (bs1), and the float32
+              (`--matcher jax`), `--bf16` and gated train steps (bs2
+              704x1024), each as a replayed CUDA graph (`graphs.compiled`,
+              the port's default on a card) against `graphs.disable()`:
+              outputs and 3 steps' losses, parameters and AdamW moments
+              bit for bit under deterministic algorithms (held for the
+              forward, the eval step and the float32 step; reported for
+              the others); then, on the same states, the median of 10
+              graphed and 3 eager calls after warm-up (phases 4 and 7
+              time the eager forward and step at length), busy time and
+              idle share, the host's kernel and graph launches, 0
+              synchronizing calls, peak memory, and K1, K2 and lap_jv
+              counted by the profiler inside one replay; phase 23's
+              census on the graphed forward, float32 and gated steps.
+The forward, eval and train entry points run as CUDA graphs
+on the card (`graphs.py`): a kernel's launches are counted when they run,
+eagerly (the WARMUPS calls before each capture, and anything under
+`graphs.disable()`) or at each replay of a graph that holds them, so a
+run's counts are its calls plus the warm-ups of each capture
+(`_graph_runs`). Phases 7's matcher rounds, 14's K1-backward events and
+18b's and 19b's gloo steps run under `graphs.disable()`.
 Then one JSON line lists each kernel with its launches and times per
 serving forward and, under `train_*`, per train step (K2's backward per
 train step; K3 and K4: the phase-9 launches beside those counted in
@@ -227,6 +250,7 @@ import argparse
 import collections
 import contextlib
 import copy
+import gc
 import json
 import os
 import subprocess
@@ -239,7 +263,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gwdepth_tpu_torch import _build
+from gwdepth_tpu_torch import _build, graphs
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.models import build_glassrgbd, swin
 from gwdepth_tpu_torch.ops import fused_conv, lap
@@ -952,8 +976,8 @@ def phase_serve():
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n = _counts()
-        want = {"k1": K1_PER_FORWARD * len(sizes),
-                "k2": K2_FWD_PER_FORWARD * len(sizes)}
+        runs = _graph_runs("forward", len(sizes))
+        want = {"k1": K1_PER_FORWARD * runs, "k2": K2_FWD_PER_FORWARD * runs}
         assert {k: n[k] for k in want} == want, (n, want)
         for name, (h, w) in sizes.items():
             for suffix in ("_depth.npy", "_depth.png", "_seg.png",
@@ -1248,6 +1272,28 @@ def _reset_counts():
     fused_conv.reset_counts()
     wm.reset_counts()
     lap.reset_counts()
+    graphs.stats.clear()
+
+
+def _graph_runs(name: str, calls: int, captures: int = 1) -> int:
+    """The device runs of `calls` calls of the compiled entry point `name`
+    ("forward", "train_step", "eval_step") since `_reset_counts()`: each
+    of its `captures` captures first ran it graphs.WARMUPS times eagerly
+    (launches counted as any), and every call replayed once (the graph's
+    launches counted at each replay). Checks `graphs.stats` against
+    that."""
+    got = {k: graphs.stats[name, k]
+           for k in ("captures", "replays", "eager_runs")}
+    want = {"captures": captures, "replays": calls,
+            "eager_runs": graphs.WARMUPS * captures}
+    assert got == want, (name, got, want)
+    return calls + graphs.WARMUPS * captures
+
+
+def _first_call(counts: dict) -> dict:
+    """The launches of a compiled entry point's first call on a card: its
+    warm-ups and the replay of its capture."""
+    return {k: (1 + graphs.WARMUPS) * v for k, v in counts.items()}
 
 
 def _expected_counts(steps: int, eval_forwards: int) -> dict:
@@ -1290,9 +1336,11 @@ def phase_train(card: str, tmp: str):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         got = _counts()
-        want = _expected_counts(steps, n_val)
+        want = _expected_counts(_graph_runs("train_step", steps),
+                                _graph_runs("eval_step", n_val))
         log(f"[train] main.main {label}: {secs:.1f} s, launches {got}, "
-            f"expected {want}")
+            f"expected {want} (the steps and eval forwards replayed, each "
+            f"capture after {graphs.WARMUPS} eager warm-ups)")
         assert got == want, f"{label}: launches {got} != {want}"
         runs[label] = {"seconds": secs, **got}
 
@@ -1344,7 +1392,7 @@ def phase_train(card: str, tmp: str):
 # matched cost is the same optimum, so only a float32 reassociation of the
 # criterion's sums may part them (and assignments that differ on a tie)
 MATCHER_LOSS_REL_TOL = 1e-6
-MATCHER_STEPS = 6             # timed steps a round, after 2 warm-ups
+MATCHER_STEPS = 3             # timed steps a round, after 2 warm-ups
 # the rounds, each from the restored state: the host path (the parent's)
 # and the kernel in turns, so that drift in the host's speed over the
 # phase falls on both
@@ -1391,15 +1439,16 @@ def _matcher_round(cfg, state, batches, matcher, runs, solve, first, peak,
 
 
 def sync_sites(cfg, state, batch) -> dict:
-    """The synchronizing calls of one --matcher jax train step that
-    PyTorch's sync-debug mode sees, counted by the Python line that made
-    them (the backward's run on autograd's thread, under its caller):
-    the 12 commonest and the total (`tools/dispatch_census.py`)."""
+    """The synchronizing calls of one --matcher jax train step, a replay
+    after its capture, that PyTorch's sync-debug mode sees, counted by
+    the Python line that made them: the 12 commonest and the total
+    (`tools/dispatch_census.py`)."""
     from gwdepth_tpu_torch.parallel import make_train_step
     from gwdepth_tpu_torch.tools.dispatch_census import sync_sites as census
 
     step = make_train_step(cfg.replace(matcher="jax"))
     gen = torch.Generator(device="cuda").manual_seed(SEED)
+    step(state, batch, gen)         # the capture
     return census(lambda: step(state, batch, gen))
 
 
@@ -1443,7 +1492,7 @@ def train_matchers(cfg, state, batches, card: str) -> dict:
 
     def restore():
         state.model.load_state_dict(saved["model"])
-        state.optimizer.load_state_dict(saved["opt"])
+        state.load_optimizer_state(saved["opt"])
         state.scheduler.load_state_dict(saved["sched"])
         state.step = saved["step"]
 
@@ -1469,8 +1518,10 @@ def train_matchers(cfg, state, batches, card: str) -> dict:
     for matcher in MATCHER_ORDER:
         restore()
         backend = "scipy" if matcher == "scipy" else "jax"
-        with (synced_matcher() if matcher == "jax_sync"
-              else contextlib.nullcontext()):
+        # eager, as the matchers are compared: the scipy path's
+        # host solve and jax_sync's syncs cannot be captured
+        with graphs.disable(), (synced_matcher() if matcher == "jax_sync"
+                                else contextlib.nullcontext()):
             state = _matcher_round(cfg.replace(matcher=backend), state,
                                    batches, matcher, runs, solve, first,
                                    peak, profs)
@@ -1909,7 +1960,8 @@ def phase_depth_only(card: str) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         served = _counts()
-        want = {"k1": 0, "k2": k2_want * len(sizes), "k3": 0, "k4": 0}
+        want = {"k1": 0, "k2": k2_want * _graph_runs("forward", len(sizes)),
+                "k3": 0, "k4": 0}
         assert {k: served[k] for k in want} == want, (served, want)
         for name, (h, w) in sizes.items():
             vis = np.asarray(Image.open(os.path.join(dst, f"{name}_vis.png")))
@@ -2039,9 +2091,10 @@ def phase_eval_outputs(train: dict) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n = _counts()
-    want = {"k1": K1_PER_FORWARD * n_val, "k2": K2_FWD_PER_FORWARD * n_val,
-            "k2_bwd": 0, "k3": 0, "k4": 0, "lap_jv": n_val,
-            "matcher_calls": n_val}
+    runs = _graph_runs("eval_step", n_val)
+    want = {"k1": K1_PER_FORWARD * runs, "k2": K2_FWD_PER_FORWARD * runs,
+            "k2_bwd": 0, "k3": 0, "k4": 0, "lap_jv": runs,
+            "matcher_calls": runs}
     log(f"[eval] main.main --eval with the outputs: {secs:.1f} s, launches "
         f"{n}")
     assert n == want, (n, want)
@@ -2121,8 +2174,9 @@ def phase_line_only(train: dict) -> dict:
     cfg = state.model.cfg
     assert cfg.with_line and not cfg.with_dense
     n_val = train["n_val"]
+    runs = _graph_runs("train_step", 2) + _graph_runs("eval_step", n_val)
     want = {"k1": 0, "k2": 0, "k2_bwd": 0, "k3": 0, "k4": 0,
-            "lap_jv": 2 + n_val, "matcher_calls": 2 + n_val}
+            "lap_jv": runs, "matcher_calls": runs}
     log(f"[line-only] main.main 2 steps + eval: {secs:.1f} s, launches {n}")
     assert n == want and state.step == 2, (n, want, state.step)
     logs = [json.loads(ln) for ln in open(os.path.join(out, "log.txt"))]
@@ -2150,7 +2204,7 @@ def phase_line_only(train: dict) -> dict:
 GATED_TRAIN_FLAGS = ["--with_dense_center", "--with_line_depth",
                      "--class_tokenfuse_layers", "1,1,1",
                      "--with_plane_norm_loss"]
-GATED_STEPS = 6               # timed train steps, after 2 warm-ups
+GATED_STEPS = 3               # timed train steps, after 2 warm-ups
 REMAT_LOSS_REL_TOL = 1e-5
 # the same kernels run with and without --remat; the comparison runs with
 # PyTorch's deterministic algorithms, since by default the card's backward
@@ -2256,6 +2310,8 @@ def gated_train_run(card: str, train: dict, remat: bool) -> dict:
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     n = _counts()
+    steps, n_val = (_graph_runs("train_step", steps),
+                    _graph_runs("eval_step", n_val))
     want = {k: v * steps for k, v in per_step.items()}
     want["k1"] += sum(GATED_K1.values()) * n_val
     want["k2"] += K2_FWD_PER_FORWARD * n_val
@@ -2290,9 +2346,12 @@ def gated_train_run(card: str, train: dict, remat: bool) -> dict:
         if i >= 2:
             times.append((time.perf_counter() - t0) * 1e3)
         got = _counts()
-        assert {k: got[k] for k in per_step} == per_step, (got, per_step)
+        # the first call captures: its warm-ups launch too
+        runs = 1 + (graphs.WARMUPS if i == 0 else 0)
+        assert {k: got[k] for k in per_step} == {
+            k: runs * v for k, v in per_step.items()}, (got, per_step)
         planes = dict(ref_attn_diffusion.shape_launches)
-        assert planes == {p: k * (2 if remat else 1)
+        assert planes == {p: k * (2 if remat else 1) * runs
                           for p, k in GATED_TRAIN_K1.items()}, planes
         assert torch.isfinite(vec).all(), "non-finite gated train loss"
     peak = torch.cuda.max_memory_allocated()
@@ -2304,7 +2363,8 @@ def gated_train_run(card: str, train: dict, remat: bool) -> dict:
     prof = profile_device(lambda: step(state, batches[0], gen), step_ms,
                           "step_ms", f"{tag}-profile")
     assert not prof or prof["k1_kernels"] == per_step["k1"], prof
-    with k1_backward_events() as pairs:
+    # the backward's Python runs eagerly only: a replay runs no hook
+    with graphs.disable(), k1_backward_events() as pairs:
         step(state, batches[1], gen)
         torch.cuda.synchronize()
     bwd = [s.elapsed_time(e) for s, e in pairs]
@@ -2465,6 +2525,8 @@ def phase_coco_lines(train: dict) -> dict:
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n_train = _counts()
+        graph_runs = (_graph_runs("train_step", counts["train"])
+                      + _graph_runs("eval_step", counts["val"]))
         _reset_counts()
         t1 = time.perf_counter()
         stats = train_main.main(args + ["--eval", "--benchmark"])
@@ -2480,7 +2542,7 @@ def phase_coco_lines(train: dict) -> dict:
         f"launches {n_eval}")
     assert {k: n_train[k] for k in none} == none, n_train
     assert {k: n_eval[k] for k in none} == none, n_eval
-    assert n_train["matcher_calls"] == counts["train"] + counts["val"]
+    assert n_train["matcher_calls"] == graph_runs, (n_train, graph_runs)
     assert n_train["lap_jv"] == n_train["matcher_calls"], n_train
     cfg = state.model.cfg
     assert cfg.backbone == "resnet101" and not cfg.with_dense
@@ -3286,7 +3348,8 @@ def phase_bf16(card: str, train: dict) -> dict:
             torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         n = _counts()
-        want = _expected_counts(steps, n_val)
+        want = _expected_counts(_graph_runs("train_step", steps),
+                                _graph_runs("eval_step", n_val))
         log(f"[bf16] main.main --bf16 4 steps + eval: {secs:.1f} s, "
             f"launches {n}, expected {want}; K1/K2 input dtypes "
             f"{sorted(dtypes)}")
@@ -3320,7 +3383,8 @@ def phase_bf16(card: str, train: dict) -> dict:
             if i >= 2:
                 times.append((time.perf_counter() - t0) * 1e3)
             got = _counts()
-            assert {k: got[k] for k in per_step} == per_step, (got, per_step)
+            want = _first_call(per_step) if i == 0 else per_step
+            assert {k: got[k] for k in per_step} == want, (got, want)
             assert torch.isfinite(vec).all(), "non-finite bf16 train loss"
         peak = torch.cuda.max_memory_allocated()
         step_ms = float(np.median(times))
@@ -3394,7 +3458,8 @@ def phase_bf16(card: str, train: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 DP_STEPS = 3                  # phase 18b's train steps
-DP_TIMED_STEPS = 6            # phase 18a's timed steps, after 2 warm-ups
+DP_TIMED_STEPS = 3            # phase 18a's timed steps, after 2 warm-ups
+DP_EPOCHS = 1                 # phase 18a's epochs of main.main
 # 18b: two ranks (one image each) against one process (both images),
 # from equal weights on equal images and depth points: the first step's
 # losses to DP_LOSS_REL_TOL and its gradients (the sum over ranks before
@@ -3455,6 +3520,8 @@ def dp_main_role(d: str) -> None:
         state = train_main.main(spec["args"])
     torch.cuda.synchronize()
     counts = _counts()
+    captured = {n: [graphs.stats[n, "captures"], graphs.stats[n, "replays"]]
+                for n in ("train_step", "eval_step")}
     mesh, cfg = state.mesh, state.model.cfg
     if mesh.is_main:
         torch.save({k: v.detach().cpu()
@@ -3488,8 +3555,8 @@ def dp_main_role(d: str) -> None:
         "distributed": mesh.distributed,
         "backend": (torch.distributed.get_backend()
                     if mesh.distributed else None),
-        "counts": counts, "per_step": per_step, "step_ms": float(
-            np.median(times)), "step_times": times,
+        "counts": counts, "graphs": captured, "per_step": per_step,
+        "step_ms": float(np.median(times)), "step_times": times,
         "kernels": len(spans), "busy_ms": sum(t for _, t in spans) / 1e3,
         "nccl_kernels": count(_NCCL_NAMES),
         "nccl_names": sorted({n[:80] for n, _ in spans
@@ -3541,10 +3608,11 @@ def first_clip_grads(record: dict):
 
 
 def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
-    """DP_STEPS train steps under deterministic algorithms, with the
-    launch counts of each, the sampled points (forced to `forced`'s, per
-    step, when given), the log vectors, the first step's gradients
-    before the clip and the final parameters."""
+    """DP_STEPS train steps under deterministic algorithms, run eagerly
+    (`graphs.disable()`), with the launch counts of each, the sampled
+    points (forced to `forced`'s, per step, when given), the log vectors,
+    the first step's gradients before the clip and the final
+    parameters."""
     from gwdepth_tpu_torch.parallel import (create_train_state,
                                             make_train_step)
     from gwdepth_tpu_torch.parallel.partition import unshard
@@ -3555,7 +3623,10 @@ def dp_steps(cfg, model, batches, mesh=None, forced=None) -> dict:
         SEED + (mesh.data_rank if mesh else 0))
     torch.cuda.reset_peak_memory_stats()
     logs, counts, points, first = [], [], [], {}
-    with deterministic_algorithms(), first_clip_grads(first):
+    # eagerly: gloo's collectives cannot be captured, and the spies on the
+    # depth points and the clip run in Python at every step
+    with graphs.disable(), deterministic_algorithms(), \
+            first_clip_grads(first):
         for i, batch in enumerate(batches):
             rec = []
             torch.cuda.synchronize()
@@ -3618,6 +3689,23 @@ def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
     `nproc` processes, or alone (nproc 0); CUBLAS_WORKSPACE_CONFIG lets
     cuBLAS run deterministically."""
     cmd = [os.path.abspath(__file__), "--dp-role", role, "--dp-dir", d]
+    # the role's processes share the card with this one: hand back this
+    # process's cached blocks first, so that a role finds the card as free
+    # as the run it is held against (cuDNN picks its algorithms by the
+    # workspace it can get; with 13-26 GiB held here phase 19b's ranks
+    # parted from each other or from the one process). cuBLAS keeps a
+    # workspace per stream, and one made inside a timing phase's capture
+    # keeps that graph's pool from going back to the card: drop them.
+    held = torch.cuda.memory_reserved()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    torch.cuda.empty_cache()
+    log(f"[{role}] this process held {held / 2**30:.2f} GiB of the card, "
+        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB after gc, the "
+        f"cuBLAS workspaces and empty_cache "
+        f"({torch.cuda.memory_allocated() / 2**30:.2f} allocated); "
+        f"{torch.cuda.mem_get_info()[0] / 2**30:.2f} GiB free")
     if nproc:
         cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
                f"--nproc_per_node={nproc}", *cmd]
@@ -3648,19 +3736,21 @@ def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
 
 
 def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
-    """Phase 18a: `main.main --mesh -1 --use_pallas` for 2 epochs on phase
-    7's scenes under torchrun (one rank, NCCL) and alone, each in its own
-    process under deterministic algorithms: log.txt and the final
+    """Phase 18a: `main.main --mesh -1 --use_pallas` for DP_EPOCHS epochs
+    on phase 7's scenes under torchrun (one rank, NCCL) and alone, each in
+    its own process under deterministic algorithms: log.txt and the final
     parameters bit-equal; launches over each run; per step (K1, K2 and
     NCCL kernels) and the step median and busy time beside phase 7's."""
     steps = train["n_train"] // TRAIN_BS
-    want = _expected_counts(2 * steps, 2 * train["n_val"])
+    # one capture of each step in main.main's epochs
+    want = _expected_counts(DP_EPOCHS * steps + graphs.WARMUPS,
+                            DP_EPOCHS * train["n_val"] + graphs.WARMUPS)
     res, secs = {}, {}
     for label, nproc in (("torchrun", 1), ("alone", 0)):
         d = os.path.join(tmp, f"dp-{label}")
         os.makedirs(d)
         args = _with_args(train["args"], output_dir=os.path.join(d, "exp")) \
-            + ["--epochs", "2", "--mesh", "-1"]
+            + ["--epochs", str(DP_EPOCHS), "--mesh", "-1"]
         _dp_write(d, "spec.json", {"args": args})
         secs[label] = _run_role("main", d, nproc)
         with open(os.path.join(d, "result0.json")) as f:
@@ -3674,7 +3764,12 @@ def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
     assert not al["launched"] and not al["distributed"], al
     for r in (tr, al):
         assert r["counts"] == want, (r["counts"], want)
-        for c in r["per_step"]:
+        assert r["graphs"] == {
+            "train_step": [1, DP_EPOCHS * steps],
+            "eval_step": [1, DP_EPOCHS * train["n_val"]]}, r
+        # the timed loop's first call captures its own step
+        assert r["per_step"][0] == _first_call(STEP_COUNTS), r["per_step"]
+        for c in r["per_step"][1:]:
             assert c == STEP_COUNTS, c
     log_equal = tr["log"] == al["log"]
     unequal = [n for n in al["params"]
@@ -3695,7 +3790,8 @@ def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
         "peak_bytes": tr["peak_bytes"], "log_bit_equal": log_equal,
         "params_bit_equal": [len(al["params"]) - len(unequal),
                              len(al["params"])]}
-    log(f"[dp-nccl] main.main --mesh -1 --use_pallas, 2 epochs, under "
+    log(f"[dp-nccl] main.main --mesh -1 --use_pallas, {DP_EPOCHS} epochs, "
+        f"under "
         f"torchrun (1 rank, NCCL) and alone: {json.dumps(summary)} on "
         f"{card}")
     assert log_equal, (tr["log"], al["log"])
@@ -3907,8 +4003,10 @@ def phase_tp_mesh1(card: str, train: dict, tmp: str) -> dict:
     its own process under deterministic algorithms: log.txt and the final
     parameters bit-equal; launches over each run and per step."""
     steps = train["n_train"] // TRAIN_BS
-    want = _expected_counts(steps, train["n_val"])
-    per_step = dict(STEP_COUNTS)
+    want = _expected_counts(steps + graphs.WARMUPS,
+                            train["n_val"] + graphs.WARMUPS)
+    # one more step of a fresh step function: its capture
+    per_step = _first_call(STEP_COUNTS)
     res, secs = {}, {}
     for label, nproc in (("torchrun", 1), ("alone", 0)):
         d = os.path.join(tmp, f"tp-{label}")
@@ -4353,7 +4451,7 @@ def plain_epoch(state, train_step, loader, epoch, generator, device,
     for batch, _ in logger.log_every(loader.epoch(epoch), "plain",
                                      total=len(loader), before_print=flush):
         state, vec = train_step(state, batch.to(device), generator)
-        pending.append(vec)
+        pending.append(vec.clone())     # the next call overwrites `vec`
     flush()
     return state, {k: m.global_avg for k, m in logger.meters.items()}
 
@@ -4422,55 +4520,20 @@ def dispatch_epochs(cfg, cpu_model, loop: str) -> dict:
 
 
 def phase_dispatch(card: str, train: dict) -> dict:
-    """Phase 23: after one warm-up call each, the shipped serving forward
-    (in a process of its own, `tools/dispatch_census.py --forward`, with
-    its busy time and host-to-device copies: its input's only), one
-    --matcher jax train step (phase 7's batch) and
-    one gated step (phase 14's GATED_CFG with its flags) under sync-debug
-    mode "error" (a synchronizing call raises; nothing catches it), each
-    after a census in mode "warn" that must count 0 (the train step from
-    the engine loop's state below, after its epochs); DISPATCH_EPOCHS
-    epochs of `engine.train_one_epoch` (prefetch, the late drain) and of
-    the plain loop over phase 7's 8 scenes, both under deterministic
-    algorithms: the same meters and final weights, bit for bit; the step
-    period, busy time and idle share of each."""
-    from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+    """Phase 23: DISPATCH_EPOCHS epochs of `engine.train_one_epoch`
+    (prefetch, the late drain) and of the plain loop over phase 7's 8
+    scenes, both under deterministic algorithms: the same meters and final
+    weights, bit for bit; the step period, busy time and idle share of
+    each. The census of synchronizing calls (the serving forward, the
+    --matcher jax step and the gated step, each after a warm-up: a census
+    in sync-debug mode "warn" that must count 0, then a call under mode
+    "error", where a synchronizing call raises and nothing catches it)
+    runs on the graphed paths in phase 24's process, with the forward's
+    host-to-device copies (its input's only)."""
     from gwdepth_tpu_torch.tools import dispatch_census as dc
 
     t0 = time.perf_counter()
-    # the forward in a process of its own (after the earlier phases'
-    # profiling sessions this process's profiler recorded no copies),
-    # while this one builds the train models on the host; no wall time is
-    # taken there (phase 4 has the forward's median)
-    env = {k: v for k, v in os.environ.items() if k != "TEARDOWN_CUPTI"}
-    proc = subprocess.Popen([sys.executable, dc.__file__, "--forward"],
-                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, env=env)
-    try:
-        cfg, cpu_model, batch = dc.train_setup(train["args"])
-        gcfg, g_model, g_batch = dc.train_setup(
-            train["args"] + GATED_TRAIN_FLAGS, lambda c: c.replace(
-                group_attention_layers=GATED_CFG["group_attention_layers"]))
-        out, err = proc.communicate(timeout=300)
-    finally:
-        if proc.poll() is None:
-            proc.kill()
-            proc.wait()
-    assert proc.returncode == 0, out[-3000:] + err[-3000:]
-    census = {"forward": json.loads(out.strip().splitlines()[-1])["forward"]}
-    fwd = census["forward"]
-    log(f"[dispatch] forward in its own process, beside the train models' "
-        f"set-up: {time.perf_counter() - t0:.1f} s")
-    # the steps' medians, busy times and idle shares are phase 7's and
-    # phase 14's; here each step must not synchronize
-    g_state = create_train_state(gcfg, g_model.to("cuda"))
-    g_step = make_train_step(gcfg)
-    gen = torch.Generator(device="cuda").manual_seed(SEED)
-    census["gated_step"] = {"sync_sites": dc.no_sync_after_warmup(
-        lambda: g_step(g_state, g_batch, gen))}
-    del g_state, g_model, g_batch
-    torch.cuda.empty_cache()
-
+    cfg, cpu_model, _ = dc.train_setup(train["args"])
     with deterministic_algorithms(), warnings.catch_warnings(
             record=True) as caught:
         warnings.simplefilter("always")
@@ -4478,18 +4541,9 @@ def phase_dispatch(card: str, train: dict) -> dict:
                  for loop in ("engine", "plain")}
     nondeterministic = sorted({str(w.message)[:160] for w in caught
                                if "deterministic" in str(w.message)})
-    # the shipped step from the engine loop's trained state
-    del loops["plain"]["state"]
-    state, step = loops["engine"].pop("state"), make_train_step(cfg)
-    census["train_step"] = {"sync_sites": dc.no_sync_after_warmup(
-        lambda: step(state, batch, gen))}
-    del state, batch
+    for loop in loops.values():
+        del loop["state"]
     torch.cuda.empty_cache()
-    for name, rec in census.items():
-        log(f"[dispatch] {name}: " + json.dumps(rec))
-        assert rec["sync_sites"]["total"] == 0, (name, rec["sync_sites"])
-    # the input's copy only (the profiler saw the forward's kernels)
-    assert not fwd.get("device_busy_ms") or fwd["h2d_copies"] == 1, fwd
     e, p = loops["engine"], loops["plain"]
     same_weights = all(torch.equal(e["weights"][k], p["weights"][k])
                        for k in p["weights"])
@@ -4503,27 +4557,351 @@ def phase_dispatch(card: str, train: dict) -> dict:
     assert same_weights
     secs = time.perf_counter() - t0
     log(f"[dispatch] phase 23 took {secs:.1f} s")
-    return {"census": census, "engine": e["record"], "plain": p["record"],
-            "seconds": secs}
+    return {"engine": e["record"], "plain": p["record"], "seconds": secs}
+
+
+# ---------------------------------------------------------------------------
+# compiled entry points: CUDA graphs (phase 24)
+# ---------------------------------------------------------------------------
+
+GRAPH_RUNS = 10               # timed graphed calls a path, after warm-up
+GRAPH_EAGER_RUNS = 3          # timed eager calls a path (phases 4 and 7
+                              # time the eager forward and step at length)
+GRAPH_STEPS = 3               # steps held bit for bit, graphed vs eager
+# what the profiler counts in one call, the same graphed or eager: K1,
+# K2 (forward and its backward's dx) and lap_jv by device kernel name
+GRAPH_KERNELS = {
+    "forward": {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD, "lap_jv": 0},
+    "eval_step": {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                  "lap_jv": 1},
+    "train_f32": {"k1": K1_PER_FORWARD,
+                  "k2": K2_FWD_PER_FORWARD + K2_BWD_PER_STEP, "lap_jv": 1},
+    "train_bf16": {"k1": K1_PER_FORWARD,
+                   "k2": K2_FWD_PER_FORWARD + K2_BWD_PER_STEP, "lap_jv": 1},
+    "train_gated": {"k1": sum(GATED_TRAIN_K1.values()),
+                    "k2": K2_FWD_PER_FORWARD + K2_BWD_PER_STEP,
+                    "lap_jv": 1},
+}
+# the paths whose graphed run must equal the eager one bit for bit; the
+# --bf16 and gated steps are reported
+GRAPH_BIT_EQUAL = ("forward", "eval_step", "train_f32")
+
+
+def _clone_tree(out):
+    if isinstance(out, torch.Tensor):
+        return out.detach().clone()
+    if isinstance(out, dict):
+        return {k: _clone_tree(v) for k, v in out.items()}
+    return out
+
+
+def _tree_equal(a: dict, b: dict) -> dict:
+    return {k: bool(torch.equal(a[k], b[k])) for k in a}
+
+
+def _graphed_vs_eager_calls(fn, n: int = 2) -> dict:
+    """`fn()` (a forward or eval step) graphed n times (the capture, then
+    replays) and once under `graphs.disable()`, under deterministic
+    algorithms: each output tensor equal or not."""
+    with deterministic_algorithms():
+        got = [_clone_tree(fn()) for _ in range(n)]
+        with graphs.disable():
+            want = _clone_tree(fn())
+    return {"equal": {k: all(_tree_equal(g, want)[k] for g in got)
+                      for k in want},
+            "max_abs": {k: max(float((g[k].double() - want[k].double())
+                                     .abs().max()) if want[k].numel()
+                               and want[k].is_floating_point() else 0.0
+                               for g in got) for k in want}}
+
+
+def _graph_train_path(cfg, cpu_model, batches, strict: bool,
+                      eager_census: bool = True) -> dict:
+    """One train state a mode from `cpu_model`'s weights, graphed and
+    under `graphs.disable()`: first GRAPH_STEPS steps from one seeded
+    dropout generator and one default generator state under
+    deterministic algorithms (the log vectors, every parameter and both
+    AdamW moments bit for bit, as counts of equal tensors; the
+    generators' final states; the kernels the Python counters saw at
+    each call), then the census of `dispatch_census._record` on the same
+    state with the default algorithms (a key of its own, so the graphed
+    step captures again): GRAPH_RUNS timed steps graphed,
+    GRAPH_EAGER_RUNS eager (without `eager_census`, the graphed census
+    alone); with `strict`, one more graphed step under sync-debug mode
+    "error"."""
+    from gwdepth_tpu_torch.parallel import create_train_state, make_train_step
+    from gwdepth_tpu_torch.tools import dispatch_census as dc
+
+    runs, records = {}, {}
+    for mode in ("graphed", "eager"):
+        graphed = mode == "graphed"
+        state = create_train_state(
+            cfg, copy.deepcopy(cpu_model).to("cuda"), steps_per_epoch=2)
+        step = make_train_step(cfg)
+        gen = torch.Generator(device="cuda").manual_seed(SEED)
+        torch.cuda.manual_seed(SEED)
+        logs, counts = [], []
+        with deterministic_algorithms():
+            for i in range(GRAPH_STEPS):
+                _reset_counts()
+                with (contextlib.nullcontext() if graphed
+                      else graphs.disable()):
+                    state, vec = step(state, batches[i % len(batches)], gen)
+                logs.append(vec.clone())
+                counts.append({k: v for k, v in _counts().items()
+                               if k != "matcher_calls"})
+        # on the host: the census's peak memory counts the state alone
+        runs[mode] = {
+            "logs": logs, "counts": counts, "keys": list(step.log_keys),
+            "params": [p.detach().cpu() for p in state.model.parameters()],
+            "moments": [t.cpu() for p in state.trainable
+                        for k, t in state.optimizer.state[p].items()
+                        if k in ("exp_avg", "exp_avg_sq")],
+            "gen": gen.get_state(), "default_gen": torch.cuda.get_rng_state()}
+        holder = [state]
+
+        def one():
+            holder[0], _ = step(holder[0], batches[0], gen)
+
+        # one warm-up with the default algorithms: the graphed step's
+        # captures (with its own warm-ups)
+        if graphed or eager_census:
+            records[mode] = dc._record(
+                one, GRAPH_RUNS if graphed else GRAPH_EAGER_RUNS,
+                must_not_sync=strict and graphed, graphed=graphed,
+                warmups=1)
+        holder.clear()
+        del state, step, one
+        torch.cuda.empty_cache()
+    g, e = runs["graphed"], runs["eager"]
+
+    def n_equal(key):
+        return [sum(torch.equal(a, b) for a, b in zip(g[key], e[key])),
+                len(e[key])]
+
+    def worst(key):
+        return max(float((a.double() - b.double()).abs().max())
+                   for a, b in zip(g[key], e[key]))
+
+    bit = {"losses": [[float(v) for v in vec] for vec in g["logs"]],
+           "log_keys": g["keys"],
+           "logs_equal": n_equal("logs"), "params_equal": n_equal("params"),
+           "moments_equal": n_equal("moments"),
+           "logs_max_abs": worst("logs"), "params_max_abs": worst("params"),
+           "moments_max_abs": worst("moments"),
+           "dropout_generator_equal": bool(torch.equal(g["gen"], e["gen"])),
+           "default_generator_equal": bool(torch.equal(g["default_gen"],
+                                                       e["default_gen"])),
+           "graphed_counts": g["counts"], "eager_counts": e["counts"]}
+    return {"bit": bit, "records": records}
+
+
+def _graph_train_setup(args: list, edit=None):
+    """(cfg, CPU model with seeded weights, the first GRAPH_STEPS train
+    batches on the card) of `main.py` run with `args`; `edit(cfg)` may
+    change the config."""
+    from gwdepth_tpu_torch import main as train_main
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+
+    cfg = train_main.config_from_args(
+        train_main.build_argparser().parse_args(args))
+    if edit is not None:
+        cfg = edit(cfg)
+    loader = Loader(GlassRGBDDataset(cfg, "train"), batch_size=TRAIN_BS,
+                    seed=SEED, num_workers=4)
+    batches = [b.to("cuda") for _, (b, _) in zip(range(GRAPH_STEPS),
+                                                  loader.epoch(5))]
+    return cfg, build_glassrgbd(cfg, cfg.seed, device="cpu"), batches
+
+
+def graphs_role(d: str) -> None:
+    """Phase 24 in a process of its own (the profiler records device
+    events there): every path graphed and under `graphs.disable()`,
+    written to `graphs.json` in `d` with the seconds of each path."""
+    from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
+    from gwdepth_tpu_torch.parallel import make_eval_step
+    from gwdepth_tpu_torch.predict import make_forward
+    from gwdepth_tpu_torch.tools import dispatch_census as dc
+
+    spec = _dp_spec(d)
+    probe()
+    t0 = time.perf_counter()
+    res, secs = {}, {}
+
+    def records(call, eager_runs):
+        return {mode: dc._record(call, GRAPH_RUNS if mode == "graphed"
+                                 else eager_runs, graphed=mode == "graphed")
+                for mode in ("graphed", "eager")}
+
+    # the serving forward, bs1 768x1024, use_pallas
+    t = time.perf_counter()
+    model, img = dc.serve_model()
+    x = img.to("cuda")
+    valid = torch.ones(x.shape[:3], dtype=torch.bool, device="cuda")
+    fwd = make_forward(model)
+    with torch.no_grad():
+        res["forward"] = {"bit": _graphed_vs_eager_calls(
+            lambda: fwd(x, valid))}
+    del fwd
+    # graphed, also phase 23's census: one call under sync-debug mode
+    # "error"
+    res["forward"]["records"] = {
+        mode: dc.serve_census(model, img, must_not_sync=mode == "graphed",
+                              runs=GRAPH_RUNS if mode == "graphed"
+                              else GRAPH_EAGER_RUNS,
+                              graphed=mode == "graphed")
+        for mode in ("graphed", "eager")}
+    del model, x, valid
+    torch.cuda.empty_cache()
+    secs["forward"] = time.perf_counter() - t
+
+    # the eval step, bs1 on the eval canvas, and the float32 train step
+    # (--matcher jax): phase 7's config, a validation scene
+    t = time.perf_counter()
+    cfg, cpu_model, batches = _graph_train_setup(spec["args"])
+    model = copy.deepcopy(cpu_model).to("cuda")
+    vbatch = next(iter(Loader(GlassRGBDDataset(cfg, "val"), batch_size=1,
+                              shuffle=False, num_workers=1).epoch(0)))[0]
+    vbatch = vbatch.to("cuda")
+    step = make_eval_step(cfg)
+    res["eval_step"] = {"bit": _graphed_vs_eager_calls(
+        lambda: step(model, vbatch))}
+    res["eval_step"]["records"] = records(lambda: step(model, vbatch),
+                                          GRAPH_EAGER_RUNS)
+    del model, step, vbatch
+    torch.cuda.empty_cache()
+    secs["eval_step"] = time.perf_counter() - t
+
+    # the train steps: float32 (--matcher jax), --bf16, gated; the first
+    # and last also phase 23's census
+    paths = (("train_f32", None, None),
+             ("train_bf16", spec["args"] + ["--bf16"], None),
+             ("train_gated", spec["args"] + GATED_TRAIN_FLAGS,
+              lambda c: c.replace(group_attention_layers=GATED_CFG[
+                  "group_attention_layers"])))
+    for name, args, edit in paths:
+        t = time.perf_counter()
+        if args is not None:
+            cfg, cpu_model, batches = _graph_train_setup(args, edit)
+        cfg.set_matmul_precision()
+        try:
+            # the gated step's eager census, the costliest, is left out
+            # (phase 24's time); its bit check runs eagerly all the same
+            res[name] = _graph_train_path(
+                cfg, cpu_model, batches, strict=name != "train_bf16",
+                eager_census=name != "train_gated")
+        finally:
+            GWDepthConfig().set_matmul_precision()
+        del batches
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t
+    res["seconds"] = time.perf_counter() - t0
+    res["path_seconds"] = secs
+    _dp_write(d, "graphs.json", res)
+
+
+def phase_graphs(card: str, train: dict, tmp: str) -> dict:
+    """Phase 24: the serving forward (bs1 768x1024, `use_pallas`), the eval
+    step (phase 7's config, bs1), and the float32 (`--matcher jax`),
+    `--bf16` and gated train steps (bs2 704x1024) as the port runs them
+    on a card, replayed CUDA graphs, against the same calls under
+    `graphs.disable()`, in a process of its own (`graphs_role`): outputs
+    (the forward, the eval step) and GRAPH_STEPS steps (losses,
+    parameters, AdamW moments) bit for bit under deterministic
+    algorithms, held for GRAPH_BIT_EQUAL and reported for the others;
+    then for each mode (a train step on the state of those steps) the
+    median of GRAPH_RUNS graphed or GRAPH_EAGER_RUNS eager calls after
+    warm-up, the device busy time and idle share, the kernels the host
+    launched and its graph launches, the synchronizing calls (0 held),
+    the peak of allocated memory, and K1, K2 and lap_jv counted by the
+    profiler inside one call (held to GRAPH_KERNELS, graphed and eager
+    alike)."""
+    t0 = time.perf_counter()
+    d = os.path.join(tmp, "graphs")
+    os.makedirs(d)
+    _dp_write(d, "spec.json", {"args": train["args"]})
+    _run_role("graphs", d, timeout=900)
+    with open(os.path.join(d, "graphs.json")) as f:
+        res = json.load(f)
+    for name, want in GRAPH_KERNELS.items():
+        r = res[name]
+        bit = r["bit"]
+        if "equal" in bit:
+            equal = all(bit["equal"].values())
+        else:
+            equal = all(a == b for a, b in (bit["logs_equal"],
+                                            bit["params_equal"],
+                                            bit["moments_equal"]))
+        r["bit_equal"] = equal
+        for mode, rec in r["records"].items():
+            keep = {k: rec.get(k) for k in (
+                "median_ms", "device_busy_ms", "device_idle_share",
+                "device_kernels", "host_launches", "graph_launches",
+                "memcpy_calls", "h2d_copies", "kernels_by_name",
+                "peak_bytes", "stream_syncs")}
+            keep["sync_calls"] = rec["sync_sites"]["total"]
+            log(f"[graphs] {name} {mode}: {json.dumps(keep)} on {card}")
+            assert rec["sync_sites"]["total"] == 0, (name, mode,
+                                                     rec["sync_sites"])
+            if "kernels_by_name" in rec:
+                assert rec["kernels_by_name"] == want, (name, mode, rec[
+                    "kernels_by_name"], want)
+            if mode == "graphed" and "graph_launches" in rec:
+                assert rec["graph_launches"] == 1, (name, rec)
+            if name == "forward" and mode == "graphed":
+                # the profiled call copies its input in: the only copy
+                assert not rec.get("device_busy_ms") or \
+                    rec["h2d_copies"] == 1, rec
+        log(f"[graphs] {name} graphed vs graphs.disable(), deterministic "
+            f"algorithms: bit-equal {equal}; {json.dumps(bit)}")
+        if name in GRAPH_BIT_EQUAL:
+            assert equal, (name, bit)
+        if name.startswith("train"):
+            # a replay counts what the graph holds, once a step
+            per_step = dict(STEP_COUNTS, k1=GRAPH_KERNELS[name]["k1"])
+            assert bit["graphed_counts"][0] == _first_call(per_step), bit
+            for c in bit["graphed_counts"][1:] + bit["eager_counts"]:
+                assert c == per_step, (name, c, per_step)
+    secs = time.perf_counter() - t0
+    log(f"[graphs] phase 24 took {secs:.1f} s ({res['seconds']:.1f} s in "
+        f"its process; by path {json.dumps(res['path_seconds'])})")
+    res["wall_seconds"] = secs
+    return res
+
+
+def _phase_clock(t_start: float):
+    """`mark(name)` logs the wall time since the last mark (or `t_start`)
+    and since `t_start`: where the smoke's time limit goes."""
+    last = [t_start]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        log(f"[time] {name}: {now - last[0]:.1f} s, {now - t_start:.1f} s "
+            f"in all")
+        last[0] = now
+
+    return mark
 
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp-role",
-                   choices=("main", "pair", "tp-main", "tp-steps"),
-                   help="phase 18's and 19's own processes (started by the "
-                        "smoke)")
+                   choices=("main", "pair", "tp-main", "tp-steps", "graphs"),
+                   help="phase 18's, 19's and 24's own processes (started "
+                        "by the smoke)")
     p.add_argument("--dp-dir")
     args = p.parse_args(argv)
     if args.dp_role:
         {"main": dp_main_role, "pair": dp_pair_role,
-         "tp-main": tp_main_role, "tp-steps": tp_steps_role}[args.dp_role](
-            args.dp_dir)
+         "tp-main": tp_main_role, "tp-steps": tp_steps_role,
+         "graphs": graphs_role}[args.dp_role](args.dp_dir)
         return
     t_start = time.perf_counter()
+    mark = _phase_clock(t_start)
     smi = probe()
     card = f"{torch.cuda.get_device_name(0)} ({smi})"
     phase_build()
+    mark("build")
     copy_kernels = copy_kernel_names()
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -4531,28 +4909,51 @@ def main(argv=None) -> None:
     with torch.no_grad():
         k1_sites = phase_k1(rng, dev)
         k2 = phase_k2(rng, dev)
+    mark("kernels")
     matcher = phase_matcher(np.random.default_rng(SEED + 20), dev, card)
+    mark("matcher")
     k1 = k1_sites[tuple(K1_SITES[0])]
     k1_n, k2_n, k2_links, k34_n = phase_model(card)
+    mark("model")
     phase_serve()
+    mark("serve")
     depth_only = phase_depth_only(card)
+    mark("depth_only")
     gated = phase_gated(card)
+    mark("gated")
     k2_train, k1_train, k1_gated_bwd = phase_backward(rng, dev)
+    mark("backward")
     with tempfile.TemporaryDirectory() as tmp:
         runs, train = phase_train(card, tmp)
+        mark("train")
         loader = phase_loader(card, train)
+        mark("loader")
         evals = phase_eval_outputs(train)
+        mark("eval_outputs")
         line_only = phase_line_only(train)
+        mark("line_only")
         gated_train = phase_gated_train(card, train)
+        mark("gated_train")
         coco = phase_coco_lines(train)
+        mark("coco_lines")
         exported = phase_export(card, tmp)
+        mark("export")
         bf16 = phase_bf16(card, train)
+        mark("bf16")
         dp = phase_data_parallel(card, train, tmp)
+        mark("data_parallel")
         tp = phase_tensor_parallel(card, train, tmp)
+        mark("tensor_parallel")
         phase_train_card_vs_cpu()
+        mark("train_card_vs_cpu")
         win = phase_window_attention(rng)
+        mark("window_attention")
         library = phase_library(card)
+        mark("library")
         dispatch = phase_dispatch(card, train)
+        mark("dispatch")
+        graphed = phase_graphs(card, train, tmp)
+        mark("graphs")
 
     missing = [key for key in k2_links if key not in k2]
     assert not missing, f"main-path K2 links not timed: {missing}"
@@ -4762,11 +5163,19 @@ def main(argv=None) -> None:
         entry["tp_mesh1_launches_per_step"] = tp["mesh1"]["per_step"][key]
         entry["tp_pair_launches_per_step_per_rank"] = \
             tp["pair"]["launches_per_step_per_rank"][key]
+        # phase 24: device kernels of this name the profiler saw in one
+        # replay of each graph (K2's forward and backward together)
+        if key in ("k1", "k2", "lap_jv"):
+            entry["graph_replay_kernels"] = {
+                path: graphed[path]["records"]["graphed"].get(
+                    "kernels_by_name", {}).get(key)
+                for path in GRAPH_KERNELS}
     log("[kernels] K1 and K2: launches, ms, plain_ms, bound_ms and "
         "library_ms per 768x1024 bs1 serving forward (launches on that path "
         "x the per-call medians above); train_* per train step at bs2 "
         "704x1024, train_launches over the first main.main train run (4 "
-        "steps, 2 eval forwards). K2 backward: launches over that run, the "
+        "steps, 2 eval forwards, replayed, and the 2 eager warm-ups before "
+        "each of the two captures). K2 backward: launches over that run, the "
         "times per train step; ms = the recompute and dx launches, "
         "backward_ms = the whole Function backward (kernel, LayerNorm "
         "backward, dw matmuls), plain_ms = autograd through the plain "
@@ -4829,7 +5238,7 @@ def main(argv=None) -> None:
         "bf16_train_run_launches / _per_step: main.main --bf16 "
         "--use_pallas, 4 steps and 2 eval forwards / one timed step "
         "(phase 17). dp_nccl_run_launches / _per_step: main.main --mesh -1 "
-        "under torchrun over NCCL, 8 steps and 4 eval forwards / one "
+        "under torchrun over NCCL, 4 steps and 2 eval forwards / one "
         "timed step; dp_pair_launches_per_step_per_rank: a rank's step of "
         "the two gloo ranks on the card (phase 18). tp_mesh1_run_launches / "
         "_per_step: main.main --mesh 1,1 under torchrun over NCCL, 4 steps "
@@ -4888,17 +5297,35 @@ def main(argv=None) -> None:
         f"functions held against the CPU in {library['seconds']:.1f} s, "
         f"launches {json.dumps(library['launches'])}; ms: " + json.dumps(
             {r["name"]: r["ms"] for r in library["modules"]}) + f" on {card}")
-    for name, rec in dispatch["census"].items():
-        log(f"[dispatch] {name}: synchronizing calls "
-            f"{rec['sync_sites']['total']} (none under sync-debug mode "
-            f"'error'), device busy {rec.get('device_busy_ms')} ms, host "
-            f"cudaStreamSynchronize {rec.get('stream_sync_ms')} ms, "
-            f"host-to-device copies {rec.get('h2d_copies')} on {card}")
+    for name, path in (("forward", "forward"), ("train_step", "train_f32"),
+                       ("gated_step", "train_gated")):
+        rec = graphed[path]["records"]["graphed"]
+        log(f"[dispatch] {name} (graphed, phase 24's process): "
+            f"synchronizing calls {rec['sync_sites']['total']} (none under "
+            f"sync-debug mode 'error'), device busy "
+            f"{rec.get('device_busy_ms')} ms, host cudaStreamSynchronize "
+            f"{rec.get('stream_sync_ms')} ms, host-to-device copies "
+            f"{rec.get('h2d_copies')} on {card}")
     for loop in ("engine", "plain"):
         r = dispatch[loop]
         log(f"[dispatch] {loop} loop: step period median {r['step_ms']:.3f}"
             f" ms, busy {r['busy_ms_per_step']:.3f} ms a step, idle share "
             f"{r['idle_share']:.4f} on {card}")
+    for name in GRAPH_KERNELS:
+        recs = graphed[name]["records"]
+        g, e = recs["graphed"], recs.get("eager", {})
+
+        def both(key, scale=1.0):
+            return " / ".join("not measured" if r.get(key) is None else
+                              f"{r[key] / scale:.3f}" for r in (g, e))
+
+        log(f"[graphs] {name}: median {both('median_ms')} ms graphed / "
+            f"eager, busy {both('device_busy_ms')} ms, idle "
+            f"{both('device_idle_share')}, host kernel launches "
+            f"{g.get('host_launches')} / {e.get('host_launches')}, graph "
+            f"launches {g.get('graph_launches')}, peak "
+            f"{both('peak_bytes', 2**30)} GiB, bit-equal "
+            f"{graphed[name]['bit_equal']} on {card}")
     log(f"[total] chip_smoke wall time "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

@@ -16,6 +16,11 @@ the loop waits for the card:
   one window late. Every value reaches the meters in order, and a
   non-finite loss stops training within two print windows.
 
+The steps return their graphs' static outputs (`graphs.compiled`), which
+the next call overwrites: what the loops keep past it (a log vector until
+its window is drained, the first batch's eval sums, the line outputs) is
+copied on the device first.
+
 Eval sums its accumulators on the device and moves them to the host after
 the loop, with the line outputs that the benchmark dumps and line
 overlays need; the dense prediction grids cost one more copy per batch.
@@ -156,7 +161,7 @@ def train_one_epoch(state, train_step: Callable, loader, epoch: int,
                         with_center=with_center)
         first = False
         state, log_vec = train_step(state, batch, generator)
-        pending.append(log_vec)
+        pending.append(log_vec.clone())
     flush()
     drain()     # the last window is still in flight after flush()
     # no `synchronize_between_processes`: every rank's log vectors are
@@ -203,8 +208,8 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
             cur = {k: res[k] for k in ("depth_sums", "confusion",
                                        "eval_losses", "eval_loss_count")
                    if k in res}
-            acc = cur if acc is None else {k: acc[k] + v
-                                           for k, v in cur.items()}
+            acc = ({k: v.clone() for k, v in cur.items()} if acc is None
+                   else {k: acc[k] + v for k, v in cur.items()})
         if save_dense_dir is not None and "pred_depth_full" in res:
             depth = res["pred_depth_full"].cpu().numpy()
             seg = res["pred_seg_cls"].cpu().numpy()
@@ -217,8 +222,8 @@ def evaluate(cfg: GWDepthConfig, model, eval_step: Callable, loader,
             n = len(batch_names)      # the rows past it pad the last batch
             names += batch_names
             order += [(bi, mesh.data_rank, j) for j in range(n)]
-            line_out.append([res[k][:n] for k in ("pred_logits",
-                                                  "pred_lines", "extent")])
+            line_out.append([res[k][:n].clone() for k in (
+                "pred_logits", "pred_lines", "extent")])
             if save_line_dir is not None:
                 gts += [(host.lines[i].numpy(), host.line_mask[i].numpy(),
                          host.images[i].numpy()) for i in range(n)]

@@ -66,6 +66,12 @@ on the card with no copy to the host (its plain version on the CPU);
 `--use_pallas` routes the model through kernels K1 and K2 (bf16 taps in
 K2) as the JAX CLI routes it through its Pallas kernels; without it the
 model runs their plain float32 formulations, on the card too.
+
+On a card the train and eval steps run as CUDA graphs, captured at their
+first call and replayed (`graphs.py`, as the JAX CLI jits its steps),
+with AdamW and its schedule as device state (`parallel/train_state.py`);
+`--matcher scipy` steps run eagerly, their host solve inside. No flag
+changes that: `graphs.disable()` is the library's switch.
 """
 
 from __future__ import annotations

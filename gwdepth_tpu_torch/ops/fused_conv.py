@@ -57,6 +57,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch import graphs
 from gwdepth_tpu_torch._build import refuse_dtensor
 
 _ACTS = {None: 0, "gelu": 1, "elu": 2}
@@ -284,11 +285,11 @@ def _launch(x, w, ln_scale, ln_bias, residual, act, fast, backward=False,
         torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "conv3x3_ln_act launch")
     if backward:
-        conv3x3_ln_act.bwd_launches += 1
+        graphs.count(conv3x3_ln_act, "bwd_launches")
     else:
-        conv3x3_ln_act.launches += 1
-        conv3x3_ln_act.shape_launches[link_key(x, w, ln_scale, residual,
-                                               act)] += 1
+        graphs.count(conv3x3_ln_act, "launches")
+        graphs.count(conv3x3_ln_act, "shape_launches",
+                     link_key(x, w, ln_scale, residual, act))
     return y
 
 

@@ -36,6 +36,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gwdepth_tpu_torch import graphs
+
 _INF = 1e30
 
 
@@ -175,7 +177,7 @@ def _launch(cost: torch.Tensor, n_valid: torch.Tensor) -> torch.Tensor:
                            Q, T, torch.cuda.current_stream(
                                cost.device).cuda_stream)
     _build.check(err, "lap_jv launch")
-    lap_jv.launches += 1
+    graphs.count(lap_jv, "launches")
     return out
 
 
@@ -247,7 +249,7 @@ def match_lines(cost: torch.Tensor, n_valid: torch.Tensor,
     else:
         raise ValueError(f"matcher backend must be 'jax' or 'scipy', got "
                          f"{backend!r}")
-    match_lines.calls += 1
+    graphs.count(match_lines, "calls")
     return out
 
 

@@ -51,6 +51,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch import graphs
 from gwdepth_tpu_torch._build import refuse_dtensor
 
 _HEADS = (2, 4, 8, 16, 32)
@@ -295,8 +296,8 @@ def _launch(a: torch.Tensor, w: torch.Tensor, b: torch.Tensor
         pl.chunk_rows if tiled else pl.rows_max, pl.threads, pl.ks, pl.pt,
         pl.smem, stream)
     _build.check(err, "ref_attn_diffusion launch")
-    ref_attn_diffusion.launches += 1
-    ref_attn_diffusion.shape_launches[B, P, R, H] += 1
+    graphs.count(ref_attn_diffusion, "launches")
+    graphs.count(ref_attn_diffusion, "shape_launches", (B, P, R, H))
     return out
 
 

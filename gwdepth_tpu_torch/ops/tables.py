@@ -9,6 +9,14 @@ dtype) instead: the numpy builder runs once, its result crosses once, and
 later calls of the same shape make no copy. On the CPU the cached tensor
 is the numpy-backed one.
 
+A CUDA graph reads each table at the address it had when it was
+captured. So the cache entry of a graph that `graphs.compiled` captured
+also holds the tables cached at the capture's end (`cached_tensors`): the
+cache's bound then drops only the cache's own reference, never the table
+under a live graph. A table is built by the warm-up calls before a
+capture; one first asked for while the current stream is capturing would
+copy from pageable memory inside the capture, so that raises.
+
 Entries are built outside inference mode, so a table first made under
 `torch.inference_mode()` can still be saved for a later backward
 (`index_select` saves its index). Under a tracer (`torch.export`'s fake
@@ -44,6 +52,11 @@ def device_table(key: Hashable, build: Callable[[], np.ndarray], device,
         if t is not None:
             _tables.move_to_end(full)
             return t
+    if full[1].type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"device_table {key!r} on {full[1]}: first built while a CUDA "
+            "graph is being captured; run the function eagerly once before "
+            "capturing it (graphs.compiled warms up first)")
     with torch.inference_mode(False), torch.no_grad():
         t = torch.from_numpy(np.ascontiguousarray(build()))
         t = t.to(full[1], dtype) if dtype is not None else t.to(full[1])
@@ -63,6 +76,12 @@ def clear() -> None:
     """Drop every cached table."""
     with _lock:
         _tables.clear()
+
+
+def cached_tensors() -> list:
+    """Every cached table, oldest first."""
+    with _lock:
+        return list(_tables.values())
 
 
 def cached_keys() -> list:

@@ -53,6 +53,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from gwdepth_tpu_torch import graphs
+
 MAX_N = 64
 MAX_HD = 32
 
@@ -282,7 +284,7 @@ def _launch_msa(q, k, v, bias, mask, q_scale: float) -> torch.Tensor:
              int(all(rows_aligned(t) for t in ops)), plan.smem,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "window_msa launch")
-    window_msa_kernel.launches += 1
+    graphs.count(window_msa_kernel, "launches")
     return out
 
 
@@ -329,7 +331,7 @@ def _launch_fence(x: torch.Tensor) -> torch.Tensor:
              len(dims), ctypes.cast(shape, P), ctypes.cast(stride, P),
              torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "layout_fence launch")
-    layout_fence.launches += 1
+    graphs.count(layout_fence, "launches")
     return out
 
 

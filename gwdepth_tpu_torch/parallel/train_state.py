@@ -26,12 +26,22 @@ Tensor parallel (a `(D, M)` mesh): after the broadcast
 shards too; the gradients are summed over the data group, and the clip's
 global norm counts each shard once: it is the one-process norm of the
 gradients, the split ones gathered whole (`clip_grad_norm_`).
+
+On a card the optimizer and its schedule are device state, as optax keeps
+them inside the jitted step: AdamW is built with `capturable=True`, its
+step counts live on the card and each group's learning rate is a device
+tensor that the schedule fills in place between steps (`advance`). So the
+train step's device half (`update`: the sums over ranks, the clip, AdamW,
+clearing the gradients) can be captured in a CUDA graph and replayed
+(`train_step.make_train_step`), and a step run eagerly under
+`graphs.disable()` does the same arithmetic. On the CPU AdamW keeps its
+float learning rates (`capturable` takes device parameters only).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 import torch.nn as nn
@@ -106,8 +116,15 @@ class TrainState:
         return [p for g in self.optimizer.param_groups for p in g["params"]]
 
     def apply_gradients(self) -> None:
-        """Sum the grads over ranks, clip, one AdamW step, advance the
-        schedule, clear the grads. A trained parameter the loss did not
+        """Sum the grads over ranks, clip, one AdamW step, clear the
+        grads (`update`), then advance the schedule (`advance`)."""
+        self.update()
+        self.advance()
+
+    def update(self) -> None:
+        """The device half of a step: sum the grads over ranks, clip, one
+        AdamW step, clear the grads; nothing here waits for the card, so a
+        CUDA graph can capture it. A trained parameter the loss did not
         reach takes a zero gradient, so Adam's moments and the weight
         decay still move, as in optax."""
         params = self.trainable
@@ -117,9 +134,74 @@ class TrainState:
         self.mesh.all_reduce_grads(params)
         clip_grad_norm_(params, self.max_norm, self.model)
         self.optimizer.step()
-        self.scheduler.step()
         self.optimizer.zero_grad(set_to_none=True)
+
+    def advance(self) -> None:
+        """The host half: the schedule's next learning rates, written into
+        the groups' device tensors in place (a graph reads them there),
+        and the step count."""
+        lrs = [g["lr"] for g in self.optimizer.param_groups]
+        self.scheduler.step()
+        _keep_lr_tensors(self.optimizer, lrs)
         self.step += 1
+
+    def load_optimizer_state(self, sd: dict) -> None:
+        """`optimizer.load_state_dict(sd)`, whatever device wrote `sd`: the
+        learning rates written into the groups' own tensors where they are
+        tensors, and each group's `capturable` flag the one this optimizer
+        was built with (a state dict carries its writer's), with AdamW's
+        step counts on the parameters' device as capturable takes them or
+        on the host as it does not."""
+        groups = self.optimizer.param_groups
+        lrs = [g["lr"] for g in groups]
+        capturable = [g.get("capturable", False) for g in groups]
+        self.optimizer.load_state_dict(sd)
+        _keep_lr_tensors(self.optimizer, lrs)
+        for g, cap in zip(self.optimizer.param_groups, capturable):
+            g["capturable"] = cap
+            for p in g["params"]:
+                st = self.optimizer.state.get(p, {})
+                if torch.is_tensor(st.get("step")):
+                    st["step"] = (st["step"].to(p.device, torch.float32)
+                                  if cap else st["step"].cpu())
+
+    def snapshot(self) -> Callable[[], None]:
+        """Copies of what a step writes (the parameters and the optimizer
+        state) and a function that writes them back in place. State that
+        the optimizer creates after the snapshot (at AdamW's first step)
+        goes back to zeros, the state AdamW starts from."""
+        params = list(self.model.parameters())
+        saved = [p.detach().clone() for p in params]
+        state = [t for st in self.optimizer.state.values()
+                 for t in st.values() if isinstance(t, torch.Tensor)]
+        saved_state = [t.clone() for t in state]
+        known = {id(t) for t in state}
+
+        def restore():
+            with torch.no_grad():
+                for p, v in zip(params, saved):
+                    p.copy_(v)
+                for t, v in zip(state, saved_state):
+                    t.copy_(v)
+                for st in self.optimizer.state.values():
+                    for t in st.values():
+                        if isinstance(t, torch.Tensor) and id(t) not in known:
+                            t.zero_()
+                for p in params:
+                    p.grad = None
+
+        return restore
+
+
+def _keep_lr_tensors(optimizer: torch.optim.Optimizer, lrs: list) -> None:
+    """Put each group's learning-rate tensor of `lrs` back in its group,
+    holding the group's new value: a schedule or a state dict may have
+    put a float or another tensor there."""
+    for g, lr in zip(optimizer.param_groups, lrs):
+        if isinstance(lr, torch.Tensor) and g["lr"] is not lr:
+            with torch.no_grad():
+                lr.fill_(g["lr"])
+            g["lr"] = lr
 
 
 def create_train_state(cfg: GWDepthConfig, model: nn.Module,
@@ -135,9 +217,20 @@ def create_train_state(cfg: GWDepthConfig, model: nn.Module,
     mesh.broadcast_([*model.parameters(), *model.buffers()])
     if shard:
         place_params(model, mesh)
-    opt = torch.optim.AdamW(param_groups(model, cfg), lr=cfg.lr,
-                            betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    groups = param_groups(model, cfg)
+    device = next(model.parameters()).device
+    capturable = device.type == "cuda"
+    for g in groups:
+        # the schedule scales the float; the group's tensor holds the result
+        g["initial_lr"] = g["lr"]
+        if capturable:
+            g["lr"] = torch.tensor(g["lr"], dtype=torch.float32,
+                                   device=device)
+    opt = torch.optim.AdamW(groups, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay,
+                            capturable=capturable)
+    lrs = [g["lr"] for g in opt.param_groups]
     sched = torch.optim.lr_scheduler.LambdaLR(
         opt, lambda step: lr_factor(step, steps_per_epoch, cfg.lr_drop))
+    _keep_lr_tensors(opt, lrs)
     return TrainState(model, opt, sched, cfg.clip_max_norm, mesh)

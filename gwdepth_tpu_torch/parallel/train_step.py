@@ -1,6 +1,18 @@
 """Train and eval steps.
 
-The port of `gwdepth_tpu/parallel/train_step.py`, eager:
+The port of `gwdepth_tpu/parallel/train_step.py`. As the JAX factories
+return jitted callables, `make_train_step` and `make_eval_step` return
+`graphs.compiled` ones: on a card each step's device work is one CUDA
+graph per signature, captured after warm-up and replayed (the train
+step's forward, losses, backward, sums over ranks, clip and AdamW, the
+`grad_accum` loop included; the eval step's forward and sums). The
+step's host half runs around the replay: the module's mode before it,
+the schedule and the step count after it (`TrainState.advance`). The log
+vector and the eval sums are the graph's static outputs, overwritten by
+the next call (`engine.py` copies what it keeps). The dropout generator
+is registered with the graph, so each replay draws the masks an eager
+step would. On CPU tensors, under `graphs.disable()`, and with
+`--matcher scipy` (a host solve inside the step), the steps run eagerly.
 
 train step = forward (train mode, dropout from the step's generator) ->
 Hungarian set criterion (weighted CE + 5 * L1 over the final and aux
@@ -45,6 +57,7 @@ from typing import Callable, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from gwdepth_tpu_torch import graphs
 from gwdepth_tpu_torch.config import GWDepthConfig
 from gwdepth_tpu_torch.data.batch import Batch
 from gwdepth_tpu_torch.losses import (identity, line_set_criterion,
@@ -106,7 +119,9 @@ def make_train_step(cfg: GWDepthConfig) -> Callable:
     Over a data mesh (`state.mesh`) `batch` is this rank's part of the
     global batch and the log vector is the global one, the same on every
     rank. The returned callable carries `log_keys`, filled on the first
-    call."""
+    call, and `compiled`, the `graphs.compiled` device half (the plain
+    function with `--matcher scipy`). The log vector is valid until the
+    next compiled call on its device."""
     log_keys: list = []
     A = max(int(cfg.grad_accum), 1)
 
@@ -121,20 +136,32 @@ def make_train_step(cfg: GWDepthConfig) -> Callable:
             log_keys.extend(sorted(logs))
         return torch.stack([logs[k].detach().float() for k in log_keys])
 
+    def train_step(state: TrainState, batch: Batch,
+                   generator: Optional[torch.Generator]) -> torch.Tensor:
+        logs = [loss_and_backward(state.model, batch.map(lambda t: t[i::A]),
+                                  generator, 1.0 / A, state.mesh.all_sum)
+                for i in range(A)]
+        state.update()
+        return torch.stack(logs).mean(dim=0)
+
+    # `--matcher scipy` solves on the host between the forward and the
+    # backward (the JAX step leaves its program there too, through a host
+    # callback): that step runs eagerly
+    device_step = train_step if cfg.matcher == "scipy" else graphs.compiled(
+        train_step, snapshot=lambda state, batch, generator: state.snapshot())
+
     def step(state: TrainState, batch: Batch,
              generator: Optional[torch.Generator] = None):
-        model = state.model
-        model.train()
         B = batch.batch_size
         if B % A:
             raise ValueError(f"batch {B} not divisible by grad_accum {A}")
-        logs = [loss_and_backward(model, batch.map(lambda t: t[i::A]),
-                                  generator, 1.0 / A, state.mesh.all_sum)
-                for i in range(A)]
-        state.apply_gradients()
-        return state, torch.stack(logs).mean(dim=0)
+        state.model.train()
+        log_vec = device_step(state, batch, generator)
+        state.advance()
+        return state, log_vec
 
     step.log_keys = log_keys
+    step.compiled = device_step
     return step
 
 
@@ -175,27 +202,29 @@ def depth_error_sums(pred: torch.Tensor, gt: torch.Tensor,
 
 def seg_confusion(pred_cls: torch.Tensor, gt: torch.Tensor,
                   valid: torch.Tensor, num_classes: int = 2) -> torch.Tensor:
-    """Confusion counts [gt, pred] over the valid pixels, float32."""
+    """Confusion counts [gt, pred] over the valid pixels, float32. The
+    counts are compared out of a fixed set of bins: `torch.bincount`
+    reads the largest index back to the host to size its output, a sync
+    that a CUDA graph cannot capture."""
     idx = gt.long() * num_classes + pred_cls.long()
     idx = torch.where(valid, idx, torch.full_like(idx,
                                                   num_classes * num_classes))
-    counts = torch.bincount(idx.reshape(-1),
-                            minlength=num_classes * num_classes + 1)
-    return counts[:-1].reshape(num_classes, num_classes).float()
+    bins = torch.arange(num_classes * num_classes, device=idx.device)
+    counts = (idx.reshape(1, -1) == bins[:, None]).sum(dim=1)
+    return counts.reshape(num_classes, num_classes).float()
 
 
 def make_eval_step(cfg: GWDepthConfig, return_dense: bool = False
                    ) -> Callable:
     """(model, batch) -> dict of device tensors: eval_losses (3,) summed
     over real images and eval_loss_count, depth_sums (10,), confusion
-    (2, 2), and the line outputs with each image's extent on the canvas.
+    (2, 2), and the line outputs with each image's extent on the canvas,
+    valid until the next compiled call on their device.
     `return_dense` adds the full-resolution depth `pred_depth_full`
     (B, H, W) and the seg argmax `pred_seg_cls` (B, H, W), for
     `--save_dense`."""
 
-    @torch.no_grad()
-    def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
-        model.eval()
+    def eval_step(model, batch: Batch) -> Dict[str, torch.Tensor]:
         with gathered(model):
             outputs = model(batch.images, batch.valid)
         res: Dict[str, torch.Tensor] = {}
@@ -237,6 +266,15 @@ def make_eval_step(cfg: GWDepthConfig, return_dense: bool = False
                  batch.valid.any(dim=1).sum(dim=1)], dim=1)
         return res
 
+    device_step = eval_step if cfg.matcher == "scipy" else \
+        graphs.compiled(eval_step)
+
+    def step(model, batch: Batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        with torch.no_grad():
+            return device_step(model, batch)
+
+    step.compiled = device_step
     return step
 
 

@@ -16,6 +16,11 @@ Outputs per image `<name>`:
 
 On the card the model runs kernels K1 and K2 (`use_pallas`, bf16 taps in
 K2) unless `--no_pallas`; on the CPU their plain float32 formulations.
+On the card the forward is one CUDA graph per `--batch`
+(`make_forward`, as the JAX CLI jits it): the tail batch is padded to
+keep its shape, each batch goes from pinned host memory into the
+graph's static input, and its outputs reach the host before the next
+replay.
 
 Weights: `--torch_init` an original-code `.pth`, or `--resume` a
 checkpoint of the port's `main.py` (its `checkpoint.pth`, or the
@@ -41,6 +46,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 from typing import List, Tuple
@@ -170,6 +176,29 @@ def config_from_args(args: argparse.Namespace):
     return cfg
 
 
+def forward(model, images, valid):
+    """The serving outputs of `model` on a batch."""
+    out = model(images, valid)
+    res = {"depth": out["pred_depth"][-1], "seg": out["pred_seg"]}
+    if out["pred_logits"] is not None:
+        res["logits"] = out["pred_logits"]
+        res["lines"] = out["pred_lines"]
+    return res
+
+
+def make_forward(model):
+    """(images, valid) -> {depth, seg[, logits, lines]}: the serving
+    forward of `model`, `graphs.compiled` (one CUDA graph per input shape,
+    `model.training` and set of parameters on a card; the outputs are
+    valid until the next compiled call). Call it under `torch.no_grad()`.
+    The model is an argument of the compiled call, so its key holds the
+    mode and its fingerprint the parameters (`.func` is the compiled
+    callable)."""
+    from gwdepth_tpu_torch import graphs
+
+    return functools.partial(graphs.compiled(forward), model)
+
+
 def main(argv=None):
     args = build_argparser().parse_args(argv)
     from gwdepth_tpu_torch.parallel.mesh import env_world_size
@@ -207,7 +236,9 @@ def main(argv=None):
     else:
         print("WARNING: random weights (no --torch_init or --resume) - for "
               "pipeline smoke tests only")
-    model = model.to(device)
+    model = model.to(device).eval()
+    fwd = make_forward(model)
+    pin = device.type == "cuda"
 
     ch, cw = cfg.eval_hw
     B = max(1, args.batch)
@@ -226,14 +257,14 @@ def main(argv=None):
             valids.append(valids[-1])
         # this rank's contiguous part of the batch
         metas = metas[part]
+        x, v = (torch.from_numpy(np.stack(a[part]))
+                for a in (canvases, valids))
+        if pin:
+            x, v = x.pin_memory(), v.pin_memory()
         with torch.no_grad():
-            out = model(torch.from_numpy(np.stack(canvases[part])).to(device),
-                        torch.from_numpy(np.stack(valids[part])).to(device))
-        outb = {"depth": out["pred_depth"][-1], "seg": out["pred_seg"]}
-        if out["pred_logits"] is not None:
-            outb["logits"] = out["pred_logits"]
-            outb["lines"] = out["pred_lines"]
-        outb = {k: v.float().cpu().numpy() for k, v in outb.items()}
+            outb = fwd(x.to(device, non_blocking=pin),
+                       v.to(device, non_blocking=pin))
+        outb = {k: t.float().cpu().numpy() for k, t in outb.items()}
         for bi, (path, (ow, oh), (h, w)) in enumerate(metas):
             _emit_one(outb, bi, path, ow, oh, h, w, cfg, args)
 

@@ -5,32 +5,40 @@
 On one NVIDIA card, at the shipped `GWDepthConfig()` with `use_pallas`
 and seeded weights, in full float32 (no TF32), it measures
 
-- the bs1 768x1024 serving forward (no grad) and
+- the bs1 768x1024 serving forward (no grad; `predict.make_forward`) and
 - one bs2 704x1024 train step (`--matcher jax`, dropout 0.1, the first
   batch of two synthetic 720x1280 scenes, already on the card),
 
-each after 2 warm-up calls: the synchronizing calls of one call that
-PyTorch's sync-debug mode "warn" reports, by the Python line that made
-them; one call under torch.profiler (device busy time, host-to-device
-copies, the host's time in `cudaStreamSynchronize` and its count); and
-the median wall time of 10 forwards or 6 steps, host clock to
-`torch.cuda.synchronize()`, whence the device's idle share. The
-forward's profiled call copies its input from pinned memory inside it,
-so its host-to-device copies include the input's. Prints one JSON line.
+each as the port runs it on a card, a replayed CUDA graph
+(`graphs.compiled`: `forward`, `train_step`), and eagerly under
+`graphs.disable()` (`forward_eager`, `train_step_eager`), each after 2
+warm-up calls (the graphed path's first call captures): the
+synchronizing calls of one call that PyTorch's sync-debug mode "warn"
+reports, by the Python line that made them; one call under
+torch.profiler (device busy time, device kernels and K1's, K2's and
+lap_jv's among them, host-to-device copies, and on the host the kernel
+launches it issued, its graph launches, its copy calls and its time in
+`cudaStreamSynchronize`); the median wall time of 10 forwards or 6
+steps, host clock to `torch.cuda.synchronize()`, whence the device's
+idle share; and the peak of allocated device memory over the path's
+calls. The forward's profiled call copies its input from pinned memory
+inside it, so its host-to-device copies include the input's. Prints one
+JSON line.
 
 `--root DIR` puts DIR first on `sys.path` before the package is
 imported, so that another checkout (a parent commit unpacked with `git
 archive`) is measured by this same code in the same call; its kernels
-build under DIR. `--forward` takes the forward alone, without its median,
-and runs it once more under sync-debug mode "error": `chip_smoke.py`
-phase 23 runs it so in a process of its own, where the profiler still
-records copies.
+build under DIR. `--forward` takes the graphed forward alone, without
+its median, and runs it once more under sync-debug mode "error", in a
+process of its own, where the profiler still records copies
+(`chip_smoke.py` phase 24 runs the same census in its own process).
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import sys
@@ -41,6 +49,13 @@ import warnings
 FORWARD_HW = (768, 1024)
 FORWARD_RUNS, STEP_RUNS, WARMUPS = 10, 6, 2
 SEED = 0
+# device kernel names of K1, K2 (its forward and its backward's dx) and
+# the JV matcher
+KERNEL_NAMES = {"k1": ("diffusion_kernel", "diffusion_tiled_kernel"),
+                "k2": ("conv3x3_ln_act_kernel",), "lap_jv": ("lap_jv_kernel",)}
+# the host's kernel launches among the CUDA API calls the profiler records
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")
 
 
 def sync_sites(fn) -> dict:
@@ -99,19 +114,23 @@ def profiled(fn, host: bool = True) -> dict:
             end = e
     api = collections.defaultdict(lambda: [0.0, 0])
     for ev in events:
-        if ev.device_type() == DeviceType.CPU and ev.name() in (
-                "cudaStreamSynchronize", "cudaMemcpyAsync", "cudaMemcpy"):
+        if ev.device_type() == DeviceType.CPU and ev.name().startswith("cu"):
             api[ev.name()][0] += ev.duration_ns() / 1e6
             api[ev.name()][1] += 1
     rec = {"device_busy_ms": busy_ns / 1e6,
            "device_kernels": sum("Memcpy" not in n and "Memset" not in n
                                  for *_, n in spans),
-           "h2d_copies": sum("HtoD" in n for *_, n in spans)}
+           "h2d_copies": sum("HtoD" in n for *_, n in spans),
+           "kernels_by_name": {k: sum(any(m in n for m in names)
+                                      for *_, n in spans)
+                               for k, names in KERNEL_NAMES.items()}}
     if host:
         rec.update(stream_sync_ms=api["cudaStreamSynchronize"][0],
                    stream_syncs=api["cudaStreamSynchronize"][1],
                    memcpy_calls=api["cudaMemcpyAsync"][1]
-                   + api["cudaMemcpy"][1])
+                   + api["cudaMemcpy"][1],
+                   host_launches=sum(api[n][1] for n in LAUNCH_CALLS),
+                   graph_launches=api["cudaGraphLaunch"][1])
     return rec
 
 
@@ -152,21 +171,41 @@ def no_sync_after_warmup(fn) -> dict:
     return sites
 
 
-def _record(fn, runs: int, profiled_fn=None, must_not_sync=False) -> dict:
-    """Warm-ups, the sync census, a profiled call and (with `runs`) the
-    median; with `must_not_sync`, one more call under `strict`."""
-    for _ in range(WARMUPS):
-        fn()
-    rec = {"sync_sites": sync_sites(fn)}
+def _record(fn, runs: int, profiled_fn=None, must_not_sync=False,
+            graphed: bool = True, warmups: int = WARMUPS) -> dict:
+    """`warmups` calls, the sync census, a profiled call and (with `runs`)
+    the median; with `must_not_sync`, one more call under `strict`. Without
+    `graphed` every call runs under `graphs.disable()`. The peak of
+    allocated memory spans them all."""
+    import torch
+
+    from gwdepth_tpu_torch import graphs
+
+    def mode():
+        return contextlib.nullcontext() if graphed else graphs.disable()
+
+    def call():
+        with mode():
+            fn()
+
+    def call_profiled():
+        with mode():
+            (profiled_fn or fn)()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(warmups):
+        call()
+    rec = {"graphed": graphed, "sync_sites": sync_sites(call)}
     if must_not_sync:
-        strict(fn)
-    rec.update(profiled(profiled_fn or fn))
-    if not runs:
-        return rec
-    rec["median_ms"], rec["times_ms"] = median_ms(fn, runs)
-    if "device_busy_ms" in rec:
-        rec["device_idle_share"] = max(
-            0.0, 1.0 - rec["device_busy_ms"] / rec["median_ms"])
+        strict(call)
+    rec.update(profiled(call_profiled))
+    if runs:
+        rec["median_ms"], rec["times_ms"] = median_ms(call, runs)
+        if "device_busy_ms" in rec:
+            rec["device_idle_share"] = max(
+                0.0, 1.0 - rec["device_busy_ms"] / rec["median_ms"])
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
     return rec
 
 
@@ -187,22 +226,26 @@ def serve_model():
 
 
 def serve_census(model, img, must_not_sync=False,
-                 runs: int = FORWARD_RUNS) -> dict:
-    """The forward's record (`_record`); the profiled call copies `img`
-    to the card inside it."""
+                 runs: int = FORWARD_RUNS, graphed: bool = True) -> dict:
+    """The forward's record (`_record`) through `predict.make_forward`;
+    the profiled call copies `img` to the card inside it."""
     import torch
 
+    from gwdepth_tpu_torch.predict import make_forward
+
+    forward = make_forward(model)
     x = img.to("cuda")
+    valid = torch.ones(x.shape[:3], dtype=torch.bool, device="cuda")
 
     def fwd():
         with torch.no_grad():
-            model(x)
+            forward(x, valid)
 
     def fwd_with_input():
         with torch.no_grad():
-            model(img.to("cuda", non_blocking=True))
+            forward(img.to("cuda", non_blocking=True), valid)
 
-    return _record(fwd, runs, fwd_with_input, must_not_sync)
+    return _record(fwd, runs, fwd_with_input, must_not_sync, graphed)
 
 
 def train_args(root: str, out: str) -> list:
@@ -235,9 +278,11 @@ def train_setup(args: list, cfg_edit=None):
     return cfg, model, batch.to("cuda")
 
 
-def train_census(cfg, model, batch) -> dict:
-    """The train step's record (`_record`), from `model`'s weights (a copy
-    on the card) and a fresh AdamW state."""
+def train_census(cfg, model, batch, graphed: bool = True,
+                 runs: int = STEP_RUNS) -> dict:
+    """The train step's record (`_record`, the median of `runs` steps),
+    from `model`'s weights (a copy on the card) and a fresh AdamW
+    state."""
     import copy
 
     import torch
@@ -252,7 +297,10 @@ def train_census(cfg, model, batch) -> dict:
     def one():
         holder[0], _ = step(holder[0], batch, gen)
 
-    return _record(one, STEP_RUNS)
+    rec = _record(one, runs, graphed=graphed)
+    del holder[0], state
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main(argv=None) -> None:
@@ -262,8 +310,7 @@ def main(argv=None) -> None:
         help="checkout whose package is measured (default: this one)")
     p.add_argument("--forward", action="store_true",
                    help="only the forward, without its median, with one "
-                        "more call under sync-debug mode \"error\" "
-                        "(chip_smoke.py phase 23)")
+                        "more call under sync-debug mode \"error\"")
     a = p.parse_args(argv)
     sys.path.insert(0, os.path.abspath(a.root))
     import torch
@@ -279,16 +326,20 @@ def main(argv=None) -> None:
     _build.build()
     out = {"package": os.path.dirname(_build.__file__),
            "build_s": time.perf_counter() - t0}
-    out["forward"] = serve_census(*serve_model(), must_not_sync=a.forward,
+    model, img = serve_model()
+    out["forward"] = serve_census(model, img, must_not_sync=a.forward,
                                   runs=0 if a.forward else FORWARD_RUNS)
     if a.forward:
         print(json.dumps(out), flush=True)
         return
+    out["forward_eager"] = serve_census(model, img, graphed=False)
+    del model
     with tempfile.TemporaryDirectory() as tmp:
         root = os.path.join(tmp, "ds")
         generate_dataset(root, 2, 1, height=720, width=1280, seed=SEED)
-        out["train_step"] = train_census(*train_setup(
-            train_args(root, os.path.join(tmp, "exp"))))
+        setup = train_setup(train_args(root, os.path.join(tmp, "exp")))
+        out["train_step"] = train_census(*setup)
+        out["train_step_eager"] = train_census(*setup, graphed=False)
     print(json.dumps(out), flush=True)
 
 

@@ -49,9 +49,14 @@ class CheckpointManager:
         split = placed(state.model) is not None
         if mesh.is_main or split:
             # the gathers of a split model are collectives: every rank
+            opt = full_optimizer_state(state.model, state.optimizer)
+            # a card's learning rates are device tensors: the file holds
+            # floats, whatever device restores it
+            opt["param_groups"] = [
+                {k: float(v) if isinstance(v, torch.Tensor) else v
+                 for k, v in g.items()} for g in opt["param_groups"]]
             payload = {"model": full_state_dict(state.model),
-                       "optimizer": full_optimizer_state(state.model,
-                                                         state.optimizer),
+                       "optimizer": opt,
                        "lr_scheduler": state.scheduler.state_dict(),
                        "epoch": epoch, "step": state.step,
                        "args": (dataclasses.asdict(config)
@@ -100,7 +105,7 @@ def restore_file(state, path: str, params_only: bool = False) -> int:
                        f"e.g. {missing[:5]}")
     if params_only or "optimizer" not in raw:
         return 0
-    state.optimizer.load_state_dict(shard_optimizer_state(
+    state.load_optimizer_state(shard_optimizer_state(
         state.model, state.optimizer, raw["optimizer"]))
     state.scheduler.load_state_dict(raw["lr_scheduler"])
     state.step = int(raw.get("step", 0))
