@@ -59,7 +59,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               per backend the median ms/step, the scipy solve's host
               time and a torch.profiler split of one step (busy time,
               idle share);
-  8. train card vs CPU  one train step's losses and every gradient tensor
+  8. train card vs CPU  (runs in phase 18b, beside its reference
+              process, whose steps nothing times; its own [time] line)
+              one train step's losses and every gradient tensor
               at the shipped widths on a 128x192 canvas, dropout 0, the
               same weights and batch on both devices: without the kernels
               (float32 throughout; no K1 or K2 launch), and with them
@@ -73,7 +75,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               limit and 3x the control's gap of that tensor); see
               `phase_train_card_vs_cpu`;
   9. window attention  the entries that reach K3 (windowed MSA) and K4
-              (layout fence), which no model path calls: one forward of
+              (layout fence), which no model path calls, through their
+              custom ops `gwdepth::window_msa` and
+              `gwdepth::layout_fence` (as K1 and K2 are bound): one forward of
               the shipped model at 768x1024 bs1 and one at 704x1024 bs2
               record the q, k, v, bias and mask of every `swin.window_msa`
               site (9 at 768x1024) and the input of every class-attention
@@ -117,15 +121,31 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               line-only, bs1) on a COCO-lines set written from phase 7's
               scenes: 2 steps, eval, then --eval --benchmark; no kernel
               launches; the tensors loaded and the step times.
-  16. export  the shipped forward through `gwdepth_tpu_torch.export.main
-              --resume` (seeded weights saved as a checkpoint) at
-              768x1024 bs1 on the card: no launch while it traces, K1 x4
-              and K2 x25 custom-op nodes in the artifact; a fresh process
-              loads it (no `gwdepth_tpu_torch.models` imported) and
-              serves phase 5's three images (K1 4, K2 25 launches an
-              image), held against the eager forward of the same weights
-              at phase 4's limits; export and load time, size, median
-              latency, busy time and idle share beside eager's;
+  16. export  (runs after phase 19; its export runs in phase 19b,
+              beside the ranks, whose steps nothing times; its own [time]
+              line) the shipped forward through
+              `gwdepth_tpu_torch.export.main --resume` (seeded weights
+              saved as a checkpoint) at
+              768x1024 bs1 on the card: one eager forward before the
+              trace (K1 4, K2 25 launches; the tables cached on the
+              card), no launch while it traces; a fresh process loads it (no `gwdepth_tpu_torch.models`
+              imported; the artifact holds K1 x4 and K2 x25 custom-op
+              nodes, K3 and K4 none) and serves phase 5's three images
+              through `load_exported`'s call, as JAX's `exp.call`: one
+              CUDA graph captured at the first image and replayed (the
+              first call's launches include the capture's warm-ups; K1 4
+              and K2 25 a call under `graphs.disable()`), each image's
+              outputs bit-equal to the same artifact under
+              `graphs.disable()` and held against the eager forward of
+              the same weights at phase 4's limits; after warm-up 0 host
+              kernel launches, 1 graph launch and 0 synchronizing calls a
+              call, K1 x4, K2 x25, K3 and K4 none in one replay by the
+              profiler's kernel names; median, busy time, idle share and
+              peak memory graphed and eager beside the eager model's;
+              export and load time (deserializing and building the
+              module), size, and the constants beyond the weights. The
+              artifact is loaded once, in the serving process, and
+              never in this one;
   17. bf16    `main.main --bf16 --use_pallas` for one epoch on phase 7's
               scenes (per step K1 4, K2 25 and 51 backward; every K1 and
               K2 input float32), the median of 8 steps after 2 warm-ups,
@@ -138,7 +158,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               on phase 7's scenes, in a process of its own under
               `torch.distributed.run --standalone --nproc_per_node 1`
               (NCCL, one rank) and alone, both under deterministic
-              algorithms: log.txt and every final parameter bit-equal;
+              algorithms (each process then runs phase 19a's part,
+              `--dp-role mains`, so 18a and 19a start two processes, not
+              four): log.txt and every final parameter bit-equal;
               per step K1 4, K2 25 and 51 backward (the counts zeroed
               before main.main and read after, and per timed step); the
               NCCL, K1 and K2 kernels a profiled step runs, the median of
@@ -147,29 +169,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
               tensors), each the data-parallel train step on its image of
               3 global batches of 2 at 704x1024 (`use_pallas`, dropout 0),
               against one process's step on both images and a control
-              (that process on images x (1 + 1e-7 noise)); the depth
+              (that process on images x (1 + 1e-7 noise)), both in one
+              process of its own (`--dp-role tp-steps` alone), whose
+              first run is also phase 19b's reference; the depth
               points forced to the one process's; K1 and K2 counted per
               rank; the first step's losses (1e-5) and gradients before
               the clip (1e-3 relative L2) held, later steps' losses and
               the parameters to 3x the control's gaps; peak memory per
-              process. `chip_smoke.py --dp-role main|pair --dp-dir DIR`
-              is how the phase starts those processes.
+              process. `chip_smoke.py --dp-role mains|tp-steps|pair
+              --dp-dir DIR` is how the phase starts those processes.
   19. tensor parallel  (a) `main.main --mesh 1,1 --use_pallas` for one
               epoch on phase 7's scenes under torchrun (NCCL, one rank)
-              and alone, under deterministic algorithms: log.txt and every
+              and alone, under deterministic algorithms, run by phase
+              18a's two processes after their 18a part: log.txt and every
               final parameter bit-equal; per step K1 4, K2 25 and 51
               backward. (b) a (1, 2) mesh of two processes on the one card
               over gloo (the split weights' all_gather through the host),
               each rank the train step on the whole of phase 18b's 3
               global batches with its half of every weight that
               `parallel/partition.py` splits, against one process in a
-              process of its own (deterministic algorithms, dropout 0):
+              process of its own (phase 18b's reference run;
+              deterministic algorithms, dropout 0):
               first-step losses and the gradients before the clip
               bit-equal, later losses and the parameters within 1e-6 x
               max(1, |w|); K1 and K2 counted per rank; the parameter and
               AdamW bytes per rank beside one process's and the split
-              share of the parameters. `--dp-role tp-main|tp-steps`
-              starts those processes.
+              share of the parameters. `--dp-role tp-steps` starts those
+              processes.
   20. matcher  (run after phase 3) the JV matcher kernel `lap_jv` at the
               shipped step's problems (6 layers x bs 2, 100 queries, 96
               slots) over seeded costs with n_valid from 0 to 96: floats,
@@ -259,12 +285,25 @@ import tempfile
 import time
 import warnings
 
-import numpy as np
-import torch
+# Where Python is told to write no bytecode (PYTHONDONTWRITEBYTECODE) and
+# none sits beside the installed packages, every process compiles torch
+# from source: about 7 s an `import torch` on an H100 host, paid again by
+# each process the smoke starts. Keep the bytecode under build/ in this
+# checkout, written by this process and read (and added to) by the ones
+# it starts.
+PYCACHE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                       "pycache")
+sys.pycache_prefix = PYCACHE
+sys.dont_write_bytecode = False
+os.environ["PYTHONPYCACHEPREFIX"] = PYCACHE
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 import torch.nn.functional as F
 
-from gwdepth_tpu_torch import _build, graphs
-from gwdepth_tpu_torch.config import GWDepthConfig
+from gwdepth_tpu_torch import _build, graphs  # noqa: E402
+from gwdepth_tpu_torch.config import GWDepthConfig  # noqa: E402
 from gwdepth_tpu_torch.models import build_glassrgbd, swin
 from gwdepth_tpu_torch.ops import fused_conv, lap
 from gwdepth_tpu_torch.ops.fused_conv import (conv3x3_ln_act,
@@ -3038,73 +3077,127 @@ def window_kernel_entries(win, serve_n: dict, train_run: dict,
 # ---------------------------------------------------------------------------
 
 # phase 16's serving process: loads the artifact with nothing of the
-# model code, runs it on the saved canvases with the launch counts zeroed
-# just before each image and read just after, times it, and reports what
-# it imported. argv: artifact, inputs npz, outputs npz, result json.
+# model code (timing the load's two parts, and listing the program's op
+# nodes and its constants beyond the weights), serves each saved canvas
+# through the compiled call (a CUDA graph, captured at the first) and
+# under graphs.disable() with the launch counts zeroed just before each
+# call and read just after, then records both modes with
+# `dispatch_census._record` (median, busy, idle, host kernel and graph
+# launches, kernels by name in one call, syncs, peak memory), and reports
+# what it imported. argv: artifact, inputs npz, outputs npz, result json,
+# timed runs.
 EXPORT_SERVER = r"""
-import json, sys, time
+import contextlib, json, sys, time
 import numpy as np
 import torch
-from torch.autograd import DeviceType
-from torch.profiler import ProfilerActivity, profile
 
-art, inp, outp, resp = sys.argv[1:5]
+art, inp, outp, resp, runs = sys.argv[1:6]
 t0 = time.perf_counter()
 torch.zeros(1, device="cuda")
 torch.cuda.synchronize()
 cuda_init_s = time.perf_counter() - t0
+spent = {}
+
+
+def timed(name, fn):
+    def run(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t
+    return run
+
+
+# the load's two parts: deserializing the file, building the module
+torch.export.load = timed("deserialize_s", torch.export.load)
+torch.export.ExportedProgram.module = timed(
+    "module_s", torch.export.ExportedProgram.module)
 t0 = time.perf_counter()
+from gwdepth_tpu_torch import graphs
 from gwdepth_tpu_torch.export import load_exported
 call = load_exported(art)
 torch.cuda.synchronize()
 load_s = time.perf_counter() - t0
-k1 = sys.modules["gwdepth_tpu_torch.ops.ref_attn_diffusion"]
-k2 = sys.modules["gwdepth_tpu_torch.ops.fused_conv"]
+from gwdepth_tpu_torch.tools import dispatch_census as dc
+ep = call.program
+targets = [str(n.target) for n in ep.graph.nodes if n.op == "call_function"]
+nodes = {k: targets.count(f"gwdepth.{op}.default") for k, op in (
+    ("k1", "ref_attn_diffusion"), ("k2", "conv3x3_ln_act"),
+    ("k3", "window_msa"), ("k4", "layout_fence"))}
+const_of = dict(ep.graph_signature.inputs_to_lifted_tensor_constants)
+consts = []
+for nd in ep.graph.nodes:
+    if nd.op == "placeholder" and nd.name in const_of:
+        t = ep.constants[const_of[nd.name]]
+        user = next(iter(nd.users), None)
+        stack = list(((user.meta.get("nn_module_stack") or {})
+                      if user is not None else {}).values())
+        consts.append({"name": const_of[nd.name], "shape": list(t.shape),
+                       "dtype": str(t.dtype),
+                       "bytes": t.numel() * t.element_size(),
+                       "user": None if user is None else str(user.target),
+                       "module": stack[-1][0] if stack else None})
+consts.sort(key=lambda c: -c["bytes"])
+weights = sum(t.numel() * t.element_size() for t in ep.state_dict.values())
+mods = {m: sys.modules[m] for m in ("gwdepth_tpu_torch.ops.ref_attn_diffusion",
+                                    "gwdepth_tpu_torch.ops.fused_conv",
+                                    "gwdepth_tpu_torch.ops.window_msa")}
+k1, k2, wm = mods.values()
+
+
+def counts():
+    return {"k1": k1.ref_attn_diffusion.launches,
+            "k2": k2.conv3x3_ln_act.launches,
+            "k2_bwd": k2.conv3x3_ln_act.bwd_launches,
+            "k3": wm.window_msa_kernel.launches,
+            "k4": wm.layout_fence.launches}
+
+
 with np.load(inp) as z:
     xs = torch.from_numpy(z["x"]).cuda()
     vs = torch.from_numpy(z["valid"]).cuda()
-outs, launches = [], []
+modes = {"graphed": contextlib.nullcontext, "eager": graphs.disable}
+outs = {m: [] for m in modes}
+launches = {m: [] for m in modes}
 for i in range(xs.shape[0]):
-    torch.cuda.synchronize()
-    k1.reset_counts()
-    k2.reset_counts()
-    o = call(xs[i:i + 1], vs[i:i + 1])
-    torch.cuda.synchronize()
-    launches.append({"k1": k1.ref_attn_diffusion.launches,
-                     "k2": k2.conv3x3_ln_act.launches,
-                     "k2_bwd": k2.conv3x3_ln_act.bwd_launches})
-    outs.append([t.cpu().numpy() for t in o])
-mods = sorted(m for m in sys.modules if m.startswith("gwdepth"))
-times = []
-for i in range(12):
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    call(xs[:1], vs[:1])
-    torch.cuda.synchronize()
-    if i >= 2:
-        times.append((time.perf_counter() - t0) * 1e3)
-with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as p:
-    call(xs[:1], vs[:1])
-    torch.cuda.synchronize()
-spans = sorted((e.time_range.start, e.time_range.end)
-               for e in p.events() if e.device_type == DeviceType.CUDA)
-busy, end = 0.0, -1.0
-for s, e in spans:
-    if e > end:
-        busy += e - max(s, end)
-        end = e
-np.savez(outp, **{f"{i}_{j}": a for i, o in enumerate(outs)
+    for mode, ctx in modes.items():
+        torch.cuda.synchronize()
+        for m in mods.values():
+            m.reset_counts()
+        with ctx():
+            o = call(xs[i:i + 1], vs[i:i + 1])
+        torch.cuda.synchronize()
+        launches[mode].append(counts())
+        outs[mode].append([t.cpu().numpy() for t in o])
+bit_equal = [[bool(np.array_equal(a, b)) for a, b in zip(g, e)]
+             for g, e in zip(outs["graphed"], outs["eager"])]
+serve_stats = {k: graphs.stats["exported_forward", k]
+               for k in ("captures", "replays", "eager_runs")}
+x0, v0 = xs[:1], vs[:1]
+records = {mode: dc._record(lambda: call(x0, v0), int(runs),
+                            must_not_sync=mode == "graphed",
+                            graphed=mode == "graphed")
+           for mode in modes}
+np.savez(outp, **{f"{i}_{j}": a for i, o in enumerate(outs["graphed"])
                   for j, a in enumerate(o)})
-from gwdepth_tpu_torch.ops import window_msa as wm
-launches_k34 = {"k3": wm.window_msa_kernel.launches,
-                "k4": wm.layout_fence.launches}
-json.dump({"load_s": load_s, "cuda_init_s": cuda_init_s, "in_avals": [[list(s), str(d)]
-                                          for s, d in call.in_avals],
-           "launches": launches, "k34": launches_k34, "modules": mods,
-           "times": times, "median_ms": float(np.median(times)),
-           "busy_ms": busy / 1e3 if spans else None,
-           "kernels": len(spans)}, open(resp, "w"))
+json.dump({"load_s": load_s, "load_parts_s": spent,
+           "cuda_init_s": cuda_init_s,
+           "in_avals": [[list(s), str(d)] for s, d in call.in_avals],
+           "nodes": nodes, "weight_bytes": weights,
+           "constant_bytes": sum(c["bytes"] for c in consts),
+           "constants": len(consts), "largest_constants": consts[:8],
+           "launches": launches, "bit_equal": bit_equal,
+           "serve_stats": serve_stats,
+           "stats": {k: graphs.stats["exported_forward", k]
+                     for k in ("captures", "replays", "eager_runs")},
+           "records": records,
+           "modules": sorted(m for m in sys.modules
+                             if m.startswith("gwdepth"))},
+          open(resp, "w"))
 """
+# phase 16's timed calls a mode of the served artifact, after its warm-ups
+EXPORT_RUNS = 10
 
 
 def op_dispatch_ms() -> dict:
@@ -3134,17 +3227,13 @@ def op_dispatch_ms() -> dict:
     return res
 
 
-def phase_export(card: str, tmp: str) -> dict:
-    """Phase 16: the shipped forward exported on the card through
-    `export.main --resume` (seeded weights saved as a checkpoint), no
-    launch while it traces; the artifact's graph holds K1 x4 and K2 x25
-    as custom-op nodes; a fresh process loads it without the model code
-    and serves phase 5's three images (K1 4 and K2 25 launches an image),
-    held against the eager forward of the same weights at phase 4's
-    limits; latency, busy time and idle share beside eager's."""
+def export_artifact(tmp: str) -> dict:
+    """Phase 16's first part: the shipped forward exported on the card
+    through `export.main --resume` (seeded weights saved as a
+    checkpoint): one eager forward, then a trace that launches nothing.
+    Returns the config, the model (on the CPU), the artifact's path, the
+    export's seconds and the artifact's size."""
     from gwdepth_tpu_torch import export
-    from gwdepth_tpu_torch.predict import preprocess
-    from PIL import Image
 
     cfg = GWDepthConfig(dropout=0.0, use_pallas=True)
     model = build_glassrgbd(cfg, SEED + 5, device="cpu")
@@ -3157,15 +3246,40 @@ def phase_export(card: str, tmp: str) -> dict:
     export.main(["--output", art, "--resume", ckpt, "--device", "cuda"])
     export_s = time.perf_counter() - t0
     n = _counts()
-    assert n["k1"] == n["k2"] == 0, f"a launch while tracing: {n}"
-    program = torch.export.load(art)
-    targets = [str(nd.target) for nd in program.graph.nodes
-               if nd.op == "call_function"]
-    nodes = {"k1": targets.count("gwdepth.ref_attn_diffusion.default"),
-             "k2": targets.count("gwdepth.conv3x3_ln_act.default")}
-    del program
-    assert nodes == {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD}, nodes
-    size_mb = os.path.getsize(art) / 1e6
+    # `export_forward` runs one eager forward before it traces (the tables
+    # cached on the card); the trace itself launches nothing
+    assert (n["k1"], n["k2"]) == (K1_PER_FORWARD, K2_FWD_PER_FORWARD), \
+        f"a launch while tracing: {n}"
+    return {"cfg": cfg, "model": model, "art": art, "export_s": export_s,
+            "artifact_mb": os.path.getsize(art) / 1e6}
+
+
+def phase_export(card: str, tmp: str, traced=None) -> dict:
+    """Phase 16: the shipped forward exported on the card through
+    `export.main --resume` (seeded weights saved as a checkpoint), no
+    launch while it traces; a fresh process loads the artifact without
+    the model code (its graph holds K1 x4 and K2 x25 as custom-op nodes,
+    K3 and K4 none) and serves phase 5's three images through
+    `load_exported`'s compiled call, a CUDA graph captured at the first
+    image and replayed: per image, the launch counts (the warm-ups of the
+    capture at the first; K1 4 and K2 25 at each call under
+    `graphs.disable()`), the outputs bit-equal to the same artifact
+    under `graphs.disable()`, and held against the eager forward of the
+    same weights at phase 4's limits; after warm-up, 0 host kernel
+    launches and 1 graph launch a call, no synchronizing call, and K1 x4,
+    K2 x25, K3 and K4 none counted by the profiler in one replay; median,
+    busy time, idle share and peak memory graphed and eager, beside the
+    eager model's; the load's time in its two parts and the artifact's
+    constants beyond the weights. `traced` is `export_artifact`'s result
+    where the export ran earlier (beside phase 19b's ranks)."""
+    from gwdepth_tpu_torch.predict import preprocess
+    from gwdepth_tpu_torch.tools import dispatch_census as dc
+    from PIL import Image
+
+    if traced is None:
+        traced = export_artifact(tmp)
+    cfg, model, art = traced["cfg"], traced["model"], traced["art"]
+    export_s, size_mb = traced["export_s"], traced["artifact_mb"]
 
     src = os.path.join(tmp, "export_images")
     write_serve_images(src)
@@ -3182,14 +3296,41 @@ def phase_export(card: str, tmp: str) -> dict:
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPATH=repo)
     subprocess.run([sys.executable, "-c", EXPORT_SERVER, art, inp, outp,
-                    resp], check=True, env=env, cwd=repo, timeout=600)
+                    resp, str(EXPORT_RUNS)], check=True, env=env, cwd=repo,
+                   timeout=600)
     res = json.load(open(resp))
     assert not [m for m in res["modules"]
                 if m.startswith("gwdepth_tpu_torch.models")], res["modules"]
+    nodes = res["nodes"]
+    assert nodes == {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                     "k3": 0, "k4": 0}, nodes
     per_image = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
-                 "k2_bwd": 0}
-    assert all(l == per_image for l in res["launches"]), res["launches"]
-    assert res["k34"] == {"k3": 0, "k4": 0}, res["k34"]
+                 "k2_bwd": 0, "k3": 0, "k4": 0}
+    graphed, eager_calls = res["launches"]["graphed"], res["launches"]["eager"]
+    assert all(l == per_image for l in eager_calls), eager_calls
+    # the first graphed call runs the warm-ups, captures and replays; each
+    # later one replays, its launches counted at the replay
+    assert graphed == [_first_call(per_image)] + [per_image] * (
+        len(xs) - 1), graphed
+    assert res["serve_stats"] == {"captures": 1, "replays": len(xs),
+                                  "eager_runs": graphs.WARMUPS + len(xs)}, \
+        res["serve_stats"]
+    # `_record`'s calls: its warm-ups, the sync census, (graphed) the call
+    # under sync-debug mode "error", the profiled call and the timed runs
+    rec_calls = dc.WARMUPS + 2 + EXPORT_RUNS
+    assert res["stats"] == {
+        "captures": 1, "replays": len(xs) + rec_calls + 1,
+        "eager_runs": graphs.WARMUPS + len(xs) + rec_calls}, res["stats"]
+    assert all(all(b) for b in res["bit_equal"]), res["bit_equal"]
+    want_kernels = {"k1": K1_PER_FORWARD, "k2": K2_FWD_PER_FORWARD,
+                    "lap_jv": 0, "k3": 0, "k4": 0}
+    for mode, rec in res["records"].items():
+        assert rec["sync_sites"]["total"] == 0 or mode == "eager", rec
+        if "kernels_by_name" in rec:
+            assert rec["kernels_by_name"] == want_kernels, (mode, rec)
+    g = res["records"]["graphed"]
+    if "host_launches" in g:
+        assert g["host_launches"] == 0 and g["graph_launches"] == 1, g
 
     eager = model.to("cuda").eval()
     cmp = []
@@ -3209,47 +3350,41 @@ def phase_export(card: str, tmp: str) -> dict:
         r = [eager(x0, v0) for _ in range(2)]
     rerun = forward_gaps(forward_outputs(r[1]), forward_outputs(r[0]))
     del r
+    torch.cuda.reset_peak_memory_stats()
     eager_ms = _forward_median_ms(lambda x: eager(x, v0), x0)
     with torch.no_grad():
         eprof = profile_device(lambda: eager(x0, v0), eager_ms, "forward_ms",
                                "export-eager-profile")
-    # the artifact again in this process, timed and profiled beside eager
-    # with the profiler in the same state
-    call = export.load_exported(art)
-    prog_ms = _forward_median_ms(lambda x: call(x, v0), x0)
-    pprof = profile_device(lambda: call(x0, v0), prog_ms, "forward_ms",
-                           "export-program-profile")
-    del call
-    busy = res["busy_ms"]
+    eager_peak = torch.cuda.max_memory_allocated()
     dispatch = op_dispatch_ms()
+    served = {mode: {k: rec.get(k) for k in (
+        "median_ms", "device_busy_ms", "device_idle_share", "device_kernels",
+        "host_launches", "graph_launches", "memcpy_calls", "kernels_by_name",
+        "peak_bytes")} for mode, rec in res["records"].items()}
+    for mode, rec in res["records"].items():
+        served[mode]["sync_calls"] = rec["sync_sites"]["total"]
     out = {"export_s": export_s, "load_s": res["load_s"],
-           "op_dispatch": dispatch,
+           "load_parts_s": res["load_parts_s"], "op_dispatch": dispatch,
            "cuda_init_s": res["cuda_init_s"], "eager_rerun": rerun,
            "artifact_mb": size_mb, "nodes": nodes,
+           "weight_bytes": res["weight_bytes"],
+           "constant_bytes": res["constant_bytes"],
+           "constants": res["constants"],
+           "largest_constants": res["largest_constants"],
            "launches_per_image": res["launches"], "vs_eager": cmp,
-           "exported_ms": res["median_ms"], "exported_busy_ms": busy,
-           "exported_idle_share": (max(0.0, 1 - busy / res["median_ms"])
-                                   if busy else None),
-           "exported_kernels": res["kernels"], "eager_ms": eager_ms,
+           "served": served, "eager_ms": eager_ms,
            "eager_busy_ms": eprof.get("device_busy_ms"),
            "eager_idle_share": eprof.get("device_idle_share"),
            "eager_kernels": eprof.get("device_kernels"),
-           "program_here_ms": prog_ms,
-           "program_here_busy_ms": pprof.get("device_busy_ms"),
-           "program_here_idle_share": pprof.get("device_idle_share"),
-           "program_here_kernels": pprof.get("device_kernels"),
-           "in_avals": res["in_avals"]}
+           "eager_peak_bytes": eager_peak, "in_avals": res["in_avals"]}
     log(f"[export] {json.dumps(out)} on {card}")
     log("[export] vs eager, full precision: " +
         "; ".join(", ".join(f"{k} {v!r}" for k, v in r.items())
                   for r in cmp))
     del eager
     torch.cuda.empty_cache()
-    return {**out, "launches": {"k1": sum(l["k1"] for l in res["launches"]),
-                                "k2": sum(l["k2"] for l in res["launches"]),
-                                "k2_bwd": 0, **res["k34"],
-                                # a forward runs no criterion
-                                "lap_jv": 0}}
+    total = {k: sum(l[k] for l in graphed) for k in per_image}
+    return {**out, "launches": {**total, "lap_jv": 0}}
 
 
 BF16_STEPS = 8                # timed bf16 train steps, after 2 warm-ups
@@ -3500,13 +3635,25 @@ def _device_kernels(fn) -> list:
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def mains_role(d: str) -> None:
+    """Phases 18a and 19a in one process (under torchrun, one rank, or
+    not): 18a's `main.main` run and timed steps (`dp_main_role`, in
+    `d`/dp), then 19a's (`tp_main_role`, in `d`/tp) on the same process
+    group, so that the two share one process start. Both processes of the
+    pair run the same sequence."""
+    dp_main_role(os.path.join(d, "dp"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_main_role(os.path.join(d, "tp"))
+
+
 def dp_main_role(d: str) -> None:
-    """Phase 18a in its own process (under torchrun, or not): `main.main`
-    with the spec's flags under deterministic algorithms, the launch
-    counts over it, its final parameters (rank 0); then, with the default
-    algorithms, DP_TIMED_STEPS timed steps of the trained state with the
-    counts per step, and one profiled step (NCCL, K1 and K2 kernels, busy
-    time)."""
+    """Phase 18a (in `mains_role`'s process): `main.main` with the spec's
+    flags under deterministic algorithms, the launch counts over it, its
+    final parameters (rank 0); then, with the default algorithms,
+    DP_TIMED_STEPS timed steps of the trained state with the counts per
+    step, and one profiled step (NCCL, K1 and K2 kernels, busy time). The
+    process group stays for 19a."""
     from gwdepth_tpu_torch import main as train_main
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.parallel import make_train_step
@@ -3563,18 +3710,22 @@ def dp_main_role(d: str) -> None:
                               if "nccl" in n.lower()}),
         "k1_kernels": count(_K1_NAMES), "k2_kernels": count(_K2_NAMES),
         "peak_bytes": torch.cuda.max_memory_allocated()})
-    if mesh.distributed:
-        torch.distributed.destroy_process_group()
+
+
+def _dp_cfg(spec: dict):
+    """Phase 18b's config: phase 7's flags, dropout 0."""
+    from gwdepth_tpu_torch import main as train_main
+
+    return train_main.config_from_args(train_main.build_argparser(
+        ).parse_args(spec["args"])).replace(dropout=0.0)
 
 
 def _dp_pair_setup(spec: dict, rank: int = 0, world: int = 1):
-    """Phase 18b's config (phase 7's flags, dropout 0), seeded model on
-    the card and this rank's part of the first DP_STEPS global batches."""
-    from gwdepth_tpu_torch import main as train_main
+    """Phase 18b's config, seeded model on the card and this rank's part
+    of the first DP_STEPS global batches."""
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
 
-    cfg = train_main.config_from_args(train_main.build_argparser(
-        ).parse_args(spec["args"])).replace(dropout=0.0)
+    cfg = _dp_cfg(spec)
     # main.py's precision: float32 without TF32 (cuDNN allows TF32 by
     # default, which a rank's process would otherwise take)
     cfg.set_matmul_precision()
@@ -3684,10 +3835,10 @@ def dp_pair_role(d: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
-    """Run this script's `role` in a subprocess: under torchrun with
+def _start_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
+    """Start this script's `role` in a subprocess: under torchrun with
     `nproc` processes, or alone (nproc 0); CUBLAS_WORKSPACE_CONFIG lets
-    cuBLAS run deterministically."""
+    cuBLAS run deterministically. `_finish_role` waits for it."""
     cmd = [os.path.abspath(__file__), "--dp-role", role, "--dp-dir", d]
     # the role's processes share the card with this one: hand back this
     # process's cached blocks first, so that a role finds the card as free
@@ -3716,23 +3867,36 @@ def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
                    [os.path.dirname(os.path.abspath(__file__))]
                    + [p for p in os.environ.get("PYTHONPATH", "").split(
                        os.pathsep) if p]))
-    t0 = time.perf_counter()
     # a session of its own, so that a timeout stops torchrun's workers too
     proc = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.PIPE, text=True,
                             start_new_session=True)
+    return {"proc": proc, "role": role, "nproc": nproc, "timeout": timeout,
+            "t0": time.perf_counter()}
+
+
+def _finish_role(job: dict) -> float:
+    """Wait for a role `_start_role` started (stopping it at its timeout);
+    raise if it failed. Returns its seconds."""
+    proc = job["proc"]
+    left = job["timeout"] - (time.perf_counter() - job["t0"])
     try:
-        out, err = proc.communicate(timeout=timeout)
+        out, err = proc.communicate(timeout=max(1.0, left))
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, 9)
         out, err = proc.communicate()
-    secs = time.perf_counter() - t0
+    secs = time.perf_counter() - job["t0"]
     if proc.returncode:
         log(out[-4000:])
         log(err[-6000:])
-        raise AssertionError(f"{role} (nproc {nproc}) exited "
+        raise AssertionError(f"{job['role']} (nproc {job['nproc']}) exited "
                              f"{proc.returncode} after {secs:.0f} s")
     return secs
+
+
+def _run_role(role: str, d: str, nproc: int = 0, timeout: int = 600):
+    """`_start_role`, then `_finish_role`."""
+    return _finish_role(_start_role(role, d, nproc, timeout))
 
 
 def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
@@ -3740,19 +3904,26 @@ def phase_dp_nccl(card: str, train: dict, tmp: str) -> dict:
     on phase 7's scenes under torchrun (one rank, NCCL) and alone, each in
     its own process under deterministic algorithms: log.txt and the final
     parameters bit-equal; launches over each run; per step (K1, K2 and
-    NCCL kernels) and the step median and busy time beside phase 7's."""
+    NCCL kernels) and the step median and busy time beside phase 7's.
+    Each process then runs phase 19a's part (`mains_role`); `seconds` is
+    the whole process's."""
     steps = train["n_train"] // TRAIN_BS
     # one capture of each step in main.main's epochs
     want = _expected_counts(DP_EPOCHS * steps + graphs.WARMUPS,
                             DP_EPOCHS * train["n_val"] + graphs.WARMUPS)
     res, secs = {}, {}
     for label, nproc in (("torchrun", 1), ("alone", 0)):
-        d = os.path.join(tmp, f"dp-{label}")
-        os.makedirs(d)
-        args = _with_args(train["args"], output_dir=os.path.join(d, "exp")) \
-            + ["--epochs", str(DP_EPOCHS), "--mesh", "-1"]
-        _dp_write(d, "spec.json", {"args": args})
-        secs[label] = _run_role("main", d, nproc)
+        top = os.path.join(tmp, f"mains-{label}")
+        for role, mesh, epochs in (("dp", "-1", DP_EPOCHS),
+                                   ("tp", "1,1", 1)):
+            d = os.path.join(top, role)
+            os.makedirs(d)
+            args = _with_args(train["args"],
+                              output_dir=os.path.join(d, "exp")) \
+                + ["--epochs", str(epochs), "--mesh", mesh]
+            _dp_write(d, "spec.json", {"args": args})
+        secs[label] = _run_role("mains", top, nproc)
+        d = os.path.join(top, "dp")
         with open(os.path.join(d, "result0.json")) as f:
             res[label] = json.load(f)
         res[label]["log"] = [json.loads(ln) for ln in
@@ -3820,38 +3991,56 @@ def _params_far(got, ref, cfg) -> tuple:
     return far, total, past
 
 
-def phase_dp_pair(card: str, train: dict, tmp: str) -> dict:
+def _steps_reference(tmp: str) -> str:
+    """The directory of the one-process reference of phases 18b and 19b
+    (and 18b's control), run once, in a process of its own
+    (`tp_steps_role` alone), on phase 7's flags."""
+    return os.path.join(tmp, "steps")
+
+
+def phase_dp_pair(card: str, train: dict, tmp: str, beside=None):
     """Phase 18b: two processes on the one card over gloo, each the data-
     parallel train step on its image of each global batch of 2, for
-    DP_STEPS steps, against one process's step on the 2 images, run here
-    first under the same deterministic algorithms (its depth points are
-    forced on the ranks, whose own picks are reported), and a control:
-    that process again on images x (1 + 1e-7 noise), the same points."""
-    from gwdepth_tpu_torch.data.batch import Batch
-
+    DP_STEPS steps, against one process's step on the 2 images, run first
+    under the same deterministic algorithms in a process of its own (its
+    depth points are forced on the ranks, whose own picks are reported;
+    phase 19b holds its ranks against the same run), and a control: that
+    process again on images x (1 + 1e-7 noise), the same points. While
+    that reference process runs, this process runs `beside()` (phase 8),
+    whose result comes back beside the summary."""
+    beside_result = None
     d = os.path.join(tmp, "dp-pair")
     os.makedirs(d)
     spec = {"args": train["args"]}
     _dp_write(d, "spec.json", spec)
-    cfg, model, batches = _dp_pair_setup(spec)
-    ref = dp_steps(cfg, model, batches)
-    gen = torch.Generator().manual_seed(SEED)
-    noisy = [Batch(b.images * (1 + 1e-7 * torch.randn(
-        b.images.shape, generator=gen)), *(getattr(b, f) for f in (
-            "valid", "depth", "seg", "lines", "line_mask"))) for b in batches]
-    model = build_glassrgbd(cfg, SEED, device="cpu").to("cuda")
-    ctl = dp_steps(cfg, model, noisy, forced=ref["points"])
-    del model
-    torch.cuda.empty_cache()
+    one = _steps_reference(tmp)
+    os.makedirs(one)
+    _dp_write(one, "spec.json", spec)
+    job = _start_role("tp-steps", one, 0)
+    if beside is not None:
+        # the reference process's steps are held bit for bit and timed by
+        # nothing, so this process's own work runs beside it
+        t0 = time.perf_counter()
+        beside_result = beside()
+        log(f"[time] {beside.__name__}: {time.perf_counter() - t0:.1f} s, "
+            f"beside phase 18b's reference process")
+    secs = {"one": _finish_role(job)}
+
+    def load(name):
+        with open(os.path.join(one, f"{name}.json")) as f:
+            rec = json.load(f)
+        return {**rec, **torch.load(os.path.join(one, f"{name}.pt"))}
+
+    ref, ctl = load("tp_one"), load("tp_control")
     torch.save({"points": ref["points"]}, os.path.join(d, "reference.pt"))
-    secs = _run_role("pair", d, nproc=2)
+    secs["pair"] = _run_role("pair", d, nproc=2)
     pair = []
     for r in range(2):
         with open(os.path.join(d, f"pair{r}.json")) as f:
             pair.append(json.load(f))
     got = torch.load(os.path.join(d, "pair_tensors.pt"))
     per_step = dict(STEP_COUNTS)
-    for p in [ref] + pair:
+    for p in [ref, ctl] + pair:
         assert p["counts"] == [per_step] * DP_STEPS, p["counts"]
     # what the ranks counted, each step of each rank the same
     counted = pair[0]["counts"][0]
@@ -3865,6 +4054,7 @@ def phase_dp_pair(card: str, train: dict, tmp: str) -> dict:
             ref["logs"][0])))
     grads, grads_ctl = (_gap_stats(g, ref["grads"])
                         for g in (got["grads"], ctl["grads"]))
+    cfg = _dp_cfg(spec)
     far, total, past = _params_far(got["params"], ref["params"], cfg)
     far_ctl, _, past_ctl = _params_far(ctl["params"], ref["params"], cfg)
     summary = {
@@ -3887,14 +4077,16 @@ def phase_dp_pair(card: str, train: dict, tmp: str) -> dict:
     assert grads["max"] <= TRAIN_GRAD_REL_L2_TOL, summary
     assert not past and not past_ctl, summary
     assert far <= CONTROL_MARGIN * far_ctl, summary
-    return summary
+    return summary, beside_result
 
 
-def phase_data_parallel(card: str, train: dict, tmp: str) -> dict:
-    """Phase 18: 18a, then 18b."""
+def phase_data_parallel(card: str, train: dict, tmp: str,
+                        beside=None) -> dict:
+    """Phase 18: 18a, then 18b (with `beside()` run in this process while
+    18b's reference process runs: its result is `out["beside"]`)."""
     t0 = time.perf_counter()
-    out = {"nccl": phase_dp_nccl(card, train, tmp),
-           "pair": phase_dp_pair(card, train, tmp)}
+    out = {"nccl": phase_dp_nccl(card, train, tmp)}
+    out["pair"], out["beside"] = phase_dp_pair(card, train, tmp, beside)
     log(f"[dp] phase 18 took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -3915,10 +4107,10 @@ TP_PARAM_REL_TOL = 1e-6
 
 
 def tp_main_role(d: str) -> None:
-    """Phase 19a in its own process (under torchrun, or not): `main.main`
-    with the spec's flags (`--mesh 1,1`) under deterministic algorithms,
-    the launch counts over it and over one more step, the final
-    parameters (rank 0)."""
+    """Phase 19a (in `mains_role`'s process, after 18a): `main.main` with
+    the spec's flags (`--mesh 1,1`) under deterministic algorithms, the
+    launch counts over it and over one more step, the final parameters
+    (rank 0); then it leaves the process group."""
     from gwdepth_tpu_torch import main as train_main
     from gwdepth_tpu_torch.data.dataset import GlassRGBDDataset, Loader
     from gwdepth_tpu_torch.parallel import make_train_step
@@ -3960,11 +4152,24 @@ def tp_main_role(d: str) -> None:
         torch.distributed.destroy_process_group()
 
 
+def _noisy_batches(batches) -> list:
+    """The control's batches: the images x (1 + 1e-7 noise), seeded."""
+    from gwdepth_tpu_torch.data.batch import Batch
+
+    gen = torch.Generator().manual_seed(SEED)
+    return [Batch(b.images * (1 + 1e-7 * torch.randn(
+        b.images.shape, generator=gen)), *(getattr(b, f) for f in (
+            "valid", "depth", "seg", "lines", "line_mask"))) for b in batches]
+
+
 def tp_steps_role(d: str) -> None:
-    """Phase 19b, one process: under torchrun, a rank of the (1, 2) mesh
-    over gloo on the one card; alone, the one-process reference. Each
-    runs TP_STEPS train steps (`dp_steps`) on the whole global batches;
-    rank 0 (or the reference) saves the whole gradients and parameters."""
+    """Phases 18b and 19b, one process: under torchrun, a rank of the
+    (1, 2) mesh over gloo on the one card; alone, the one-process
+    reference that both phases hold their ranks against, and then 18b's
+    control (that process again on images x (1 + 1e-7 noise), the depth
+    points forced to the reference's). Each runs TP_STEPS train steps
+    (`dp_steps`) on the whole global batches; rank 0 (or the reference)
+    saves the whole gradients and parameters."""
     from gwdepth_tpu_torch.parallel import make_mesh, setup
     from gwdepth_tpu_torch.parallel.mesh import launched
     from gwdepth_tpu_torch.parallel.partition import spec_for
@@ -3982,8 +4187,9 @@ def tp_steps_role(d: str) -> None:
                 if spec_for(n, p.shape, 2) is not None)
     run = dp_steps(cfg, model, batches, mesh)
     name = "tp_one" if mesh is None else f"tp_rank{mesh.rank}"
+    keep = ("params", "grads", "points")
     if mesh is None or mesh.is_main:
-        torch.save({k: run[k] for k in ("params", "grads", "points")},
+        torch.save({k: run[k] for k in keep},
                    os.path.join(d, f"{name}.pt"))
     _dp_write(d, f"{name}.json", {
         "keys": run["keys"], "logs": run["logs"], "counts": run["counts"],
@@ -3995,26 +4201,33 @@ def tp_steps_role(d: str) -> None:
         "backend": (torch.distributed.get_backend() if mesh else None)})
     if mesh is not None:
         torch.distributed.destroy_process_group()
+        return
+    del model
+    torch.cuda.empty_cache()
+    model = build_glassrgbd(cfg, SEED, device="cpu").to("cuda")
+    ctl = dp_steps(cfg, model, _noisy_batches(batches),
+                   forced=run["points"])
+    torch.save({k: ctl[k] for k in keep},
+               os.path.join(d, "tp_control.pt"))
+    _dp_write(d, "tp_control.json", {"logs": ctl["logs"],
+                                     "counts": ctl["counts"]})
 
 
 def phase_tp_mesh1(card: str, train: dict, tmp: str) -> dict:
     """Phase 19a: `main.main --mesh 1,1 --use_pallas` for one epoch on
     phase 7's scenes under torchrun (one rank, NCCL) and alone, each in
-    its own process under deterministic algorithms: log.txt and the final
-    parameters bit-equal; launches over each run and per step."""
+    the process of phase 18a's run (`mains_role`, after 18a's part) under
+    deterministic algorithms: log.txt and the final parameters bit-equal;
+    launches over each run and per step."""
     steps = train["n_train"] // TRAIN_BS
     want = _expected_counts(steps + graphs.WARMUPS,
                             train["n_val"] + graphs.WARMUPS)
     # one more step of a fresh step function: its capture
     per_step = _first_call(STEP_COUNTS)
-    res, secs = {}, {}
-    for label, nproc in (("torchrun", 1), ("alone", 0)):
-        d = os.path.join(tmp, f"tp-{label}")
-        os.makedirs(d)
-        args = _with_args(train["args"], output_dir=os.path.join(d, "exp")) \
-            + ["--epochs", "1", "--mesh", "1,1"]
-        _dp_write(d, "spec.json", {"args": args})
-        secs[label] = _run_role("tp-main", d, nproc)
+    res = {}
+    # run by phase 18a's processes (`mains_role`), after 18a's part
+    for label in ("torchrun", "alone"):
+        d = os.path.join(tmp, f"mains-{label}", "tp")
         with open(os.path.join(d, "result0.json")) as f:
             res[label] = json.load(f)
         res[label]["log"] = [json.loads(ln) for ln in
@@ -4031,7 +4244,7 @@ def phase_tp_mesh1(card: str, train: dict, tmp: str) -> dict:
     log_equal = tr["log"] == al["log"]
     unequal = [n for n in al["params"]
                if not torch.equal(tr["params"][n], al["params"][n])]
-    summary = {"seconds": secs, "launches": tr["counts"],
+    summary = {"launches": tr["counts"],
                "per_step": tr["per_step"], "log_bit_equal": log_equal,
                "params_bit_equal": [len(al["params"]) - len(unequal),
                                     len(al["params"])]}
@@ -4050,26 +4263,38 @@ def _rel_gap(got: dict, ref: dict) -> float:
                for n, w in ref.items())
 
 
-def phase_tp_pair(card: str, train: dict, tmp: str) -> dict:
+def phase_tp_pair(card: str, train: dict, tmp: str, beside=None):
     """Phase 19b: a (1, 2) mesh of two processes on the one card over
     gloo (the split weights' all_gather staged through the host, the
     all_reduce and broadcast on CUDA tensors), TP_STEPS steps of the
     shipped config on phase 18b's batches (dropout 0, `use_pallas`),
     against one process in a process of its own: losses, gradients
     before the clip and parameters, the launches per rank and step, and
-    the parameter and AdamW bytes each rank holds."""
+    the parameter and AdamW bytes each rank holds. While the ranks run,
+    this process runs `beside()` (phase 16's export), whose result comes
+    back beside the summary."""
     d = os.path.join(tmp, "tp-pair")
     os.makedirs(d)
     _dp_write(d, "spec.json", {"args": train["args"]})
-    secs = {"one": _run_role("tp-steps", d, 0),
-            "pair": _run_role("tp-steps", d, nproc=2)}
+    job = _start_role("tp-steps", d, nproc=2)
+    beside_result = None
+    if beside is not None:
+        # the ranks' steps are held bit for bit and timed by nothing, so
+        # this process's own work runs beside them
+        t0 = time.perf_counter()
+        beside_result = beside()
+        log(f"[time] {beside.__name__}: {time.perf_counter() - t0:.1f} s, "
+            f"beside phase 19b's ranks")
+    secs = {"pair": _finish_role(job)}
 
-    def load(name):
-        with open(os.path.join(d, f"{name}.json")) as f:
+    def load(name, where=d):
+        with open(os.path.join(where, f"{name}.json")) as f:
             return json.load(f)
 
-    one, ranks = load("tp_one"), [load(f"tp_rank{r}") for r in range(2)]
-    ref = torch.load(os.path.join(d, "tp_one.pt"))
+    # the one-process reference: phase 18b's, run in a process of its own
+    one = load("tp_one", _steps_reference(tmp))
+    ranks = [load(f"tp_rank{r}") for r in range(2)]
+    ref = torch.load(os.path.join(_steps_reference(tmp), "tp_one.pt"))
     got = torch.load(os.path.join(d, "tp_rank0.pt"))
     per_step = dict(STEP_COUNTS)
     for p in [one] + ranks:
@@ -4115,14 +4340,16 @@ def phase_tp_pair(card: str, train: dict, tmp: str) -> dict:
     for r in ranks:
         assert r["param_bytes"] < one["param_bytes"], summary
         assert r["adam_bytes"] < one["adam_bytes"], summary
-    return summary
+    return summary, beside_result
 
 
-def phase_tensor_parallel(card: str, train: dict, tmp: str) -> dict:
-    """Phase 19: 19a, then 19b."""
+def phase_tensor_parallel(card: str, train: dict, tmp: str,
+                          beside=None) -> dict:
+    """Phase 19: 19a, then 19b (with `beside()` run in this process while
+    19b's ranks run: its result is `out["beside"]`)."""
     t0 = time.perf_counter()
-    out = {"mesh1": phase_tp_mesh1(card, train, tmp),
-           "pair": phase_tp_pair(card, train, tmp)}
+    out = {"mesh1": phase_tp_mesh1(card, train, tmp)}
+    out["pair"], out["beside"] = phase_tp_pair(card, train, tmp, beside)
     log(f"[tp] phase 19 took {time.perf_counter() - t0:.1f} s")
     return out
 
@@ -4582,6 +4809,9 @@ GRAPH_KERNELS = {
                     "k2": K2_FWD_PER_FORWARD + K2_BWD_PER_STEP,
                     "lap_jv": 1},
 }
+# no model path runs K3 or K4
+for _want in GRAPH_KERNELS.values():
+    _want.update(k3=0, k4=0)
 # the paths whose graphed run must equal the eager one bit for bit; the
 # --bf16 and gated steps are reported
 GRAPH_BIT_EQUAL = ("forward", "eval_step", "train_f32")
@@ -4886,14 +5116,14 @@ def _phase_clock(t_start: float):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--dp-role",
-                   choices=("main", "pair", "tp-main", "tp-steps", "graphs"),
+                   choices=("mains", "pair", "tp-steps", "graphs"),
                    help="phase 18's, 19's and 24's own processes (started "
                         "by the smoke)")
     p.add_argument("--dp-dir")
     args = p.parse_args(argv)
     if args.dp_role:
-        {"main": dp_main_role, "pair": dp_pair_role,
-         "tp-main": tp_main_role, "tp-steps": tp_steps_role,
+        {"mains": mains_role, "pair": dp_pair_role,
+         "tp-steps": tp_steps_role,
          "graphs": graphs_role}[args.dp_role](args.dp_dir)
         return
     t_start = time.perf_counter()
@@ -4936,16 +5166,24 @@ def main(argv=None) -> None:
         mark("gated_train")
         coco = phase_coco_lines(train)
         mark("coco_lines")
-        exported = phase_export(card, tmp)
-        mark("export")
         bf16 = phase_bf16(card, train)
         mark("bf16")
-        dp = phase_data_parallel(card, train, tmp)
+        # phase 8 runs beside phase 18b's reference process, and phase
+        # 16's export beside phase 19b's ranks: each has a [time] line of
+        # its own inside the phase's
+
+        def train_card_vs_cpu():
+            return phase_train_card_vs_cpu()
+
+        def export_trace():
+            return export_artifact(tmp)
+
+        dp = phase_data_parallel(card, train, tmp, beside=train_card_vs_cpu)
         mark("data_parallel")
-        tp = phase_tensor_parallel(card, train, tmp)
+        tp = phase_tensor_parallel(card, train, tmp, beside=export_trace)
         mark("tensor_parallel")
-        phase_train_card_vs_cpu()
-        mark("train_card_vs_cpu")
+        exported = phase_export(card, tmp, tp["beside"])
+        mark("export")
         win = phase_window_attention(rng)
         mark("window_attention")
         library = phase_library(card)
@@ -5279,13 +5517,18 @@ def main(argv=None) -> None:
         f"tensors from --frozen_weights, step times "
         f"{json.dumps(coco['step_times'])} ms, train run "
         f"{coco['seconds']:.1f} s, eval {coco['eval_seconds']:.1f} s")
-    log(f"[export] exported forward median {exported['exported_ms']:.3f} "
-        f"ms (busy {exported['exported_busy_ms']}) in its own process, "
-        f"{exported['program_here_ms']:.3f} ms (busy "
-        f"{exported['program_here_busy_ms']}) beside eager "
-        f"{exported['eager_ms']:.3f} ms (busy {exported['eager_busy_ms']}); "
-        f"export {exported['export_s']:.1f} s, load {exported['load_s']:.1f}"
-        f" s, {exported['artifact_mb']:.1f} MB on {card}")
+    for mode, r in exported["served"].items():
+        log(f"[export] the artifact served in a fresh process, {mode}: "
+            f"median {r['median_ms']:.3f} ms, busy {r['device_busy_ms']} ms, "
+            f"idle {r['device_idle_share']}, host kernel launches "
+            f"{r['host_launches']}, graph launches {r['graph_launches']}, "
+            f"peak {r['peak_bytes'] / 2**30:.2f} GiB; eager model "
+            f"{exported['eager_ms']:.3f} ms (busy "
+            f"{exported['eager_busy_ms']}); export "
+            f"{exported['export_s']:.1f} s, load {exported['load_s']:.1f} s "
+            f"({json.dumps(exported['load_parts_s'])}), "
+            f"{exported['artifact_mb']:.1f} MB, constants beyond the weights "
+            f"{exported['constant_bytes'] / 1e6:.1f} MB on {card}")
     log(f"[bf16] step median {bf16['step_ms']:.3f} ms (float32 "
         f"{bf16['f32_step_ms']:.3f}), busy {bf16['busy_ms']} (float32 "
         f"{bf16['f32_busy_ms']}), idle {bf16['idle_share']} (float32 "

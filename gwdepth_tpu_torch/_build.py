@@ -6,6 +6,11 @@ seconds) under `build/kernels/` at the repo root. The file name carries a
 hash of the source and the flags, so an edited source is rebuilt. Every C
 entry returns `cudaGetLastError()`; `check` raises when it is not 0.
 
+A source named in `PARTS` holds many template instances: it is compiled
+as that many translation units at once (`-DGW_PARTS=n -DGW_PART=i`, each
+unit its share of the instances) and the objects are linked into the one
+library, so its build takes about the time of its largest part.
+
     python -m gwdepth_tpu_torch._build     # build every kernel, print ptxas
 """
 
@@ -28,6 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-lineinfo"]
 KERNELS = ("ref_attn_diffusion", "conv3x3_ln_act", "window_msa",
            "layout_fence", "lap_jv")
+# sources built as several translation units (see the module docstring)
+PARTS = {"ref_attn_diffusion": 4}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -60,35 +67,61 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = " ".join(NVCC_FLAGS) + f" parts={PARTS.get(name, 1)}"
+    h = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 
+def _popen(cmd):
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+
+
 def _start(name: str):
-    """Start nvcc for one kernel; None when the library is already built."""
+    """Start nvcc for one kernel (for each part of it); None when the
+    library is already built."""
     out = _target(name)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".so.tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-    return proc, tmp, out
+    src = str(CSRC / f"{name}.cu")
+    n = PARTS.get(name, 1)
+    if n == 1:
+        return [_popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), src])], tmp, out
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    # nvcc links only files it knows by their suffix
+    objs = [out.with_suffix(f".part{i}.tmp{os.getpid()}.o") for i in range(n)]
+    procs = [_popen([_nvcc(), *flags, f"-DGW_PARTS={n}", f"-DGW_PART={i}",
+                     "-c", "-o", str(o), src]) for i, o in enumerate(objs)]
+    return procs, tmp, out, objs
 
 
 def _finish(name: str, job) -> None:
-    proc, tmp, out = job
-    log, _ = proc.communicate()
-    out.with_suffix(".log").write_text(log)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    procs, tmp, out, *objs = job
+    logs = []
+    for proc in procs:
+        log, _ = proc.communicate()
+        logs.append(log)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+    if objs:
+        link = _popen([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                       *map(str, objs[0])])
+        log, _ = link.communicate()
+        logs.append(log)
+        for o in objs[0]:
+            o.unlink()
+        if link.returncode != 0:
+            raise RuntimeError(f"linking {name}.cu's parts failed:\n{log}")
+    out.with_suffix(".log").write_text("".join(logs))
     os.replace(tmp, out)
 
 
 def build(names: Iterable[str] = KERNELS) -> float:
-    """Compile every named kernel that is not built yet, one nvcc each, all
-    started together. Returns the seconds spent."""
+    """Compile every named kernel that is not built yet, one nvcc each (one
+    for each part of a source in `PARTS`), all started together. Returns
+    the seconds spent."""
     t0 = time.perf_counter()
     jobs = {n: _start(n) for n in names}
     for n, job in jobs.items():

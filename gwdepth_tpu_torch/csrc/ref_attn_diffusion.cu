@@ -763,6 +763,138 @@ int launch_cooperative(void (*kern)(KArgs...), int grid, int threads,
   return (int)cudaGetLastError();
 }
 
+// The translation unit's part of the instances. `_build.py` compiles this
+// file GW_PARTS times, with GW_PART = 0 .. GW_PARTS - 1, and links the
+// objects into one library, so that the instances build in parallel:
+// instance i of the two lists (band first, then tiled) belongs to part
+// i mod GW_PARTS. Part 0 also holds the C entry, which asks each part in
+// turn. Built as one unit, part 0 holds every instance.
+#ifndef GW_PARTS
+#define GW_PARTS 1
+#define GW_PART 0
+#endif
+static_assert(GW_PARTS >= 1 && GW_PARTS <= 8 && GW_PART >= 0 &&
+                  GW_PART < GW_PARTS,
+              "GW_PART must be one of 0 .. GW_PARTS - 1, GW_PARTS <= 8");
+
+struct Instance {
+  int h, ks, pt;
+};
+#define GW_K1_ENTRY(h, ks, pt) {h, ks, pt},
+constexpr Instance kBand[] = {GW_K1_INSTANCES(GW_K1_ENTRY)};
+constexpr Instance kTiled[] = {GW_K1_TILED_INSTANCES(GW_K1_ENTRY)};
+#undef GW_K1_ENTRY
+constexpr int kNumBand = sizeof(kBand) / sizeof(kBand[0]);
+constexpr int kNumTiled = sizeof(kTiled) / sizeof(kTiled[0]);
+// what a part returns for an instance that another part compiles
+constexpr int kNotHere = -1;
+
+constexpr int part_of(bool tiled, int h, int ks, int pt) {
+  const Instance* list = tiled ? kTiled : kBand;
+  const int n = tiled ? kNumTiled : kNumBand;
+  for (int i = 0; i < n; ++i)
+    if (list[i].h == h && list[i].ks == ks && list[i].pt == pt)
+      return ((tiled ? kNumBand : 0) + i) % GW_PARTS;
+  return -1;
+}
+
+template <int Part>
+int launch_part(const float* a, float* out, float* upd, float2* st,
+                unsigned* bar, const float* w, const float* bias, int P,
+                int R, int H, int nbp, int rows_max, int threads, int KS,
+                int PT, int grid, size_t sb, cudaStream_t s) {
+  if (upd == nullptr) {
+#define GW_K1_RUN(h, ks, pt)                                                \
+    if constexpr (part_of(false, h, ks, pt) == Part) {                      \
+      if (H == h && KS == ks && PT == pt)                                   \
+        return launch_cooperative(diffusion_kernel<h, pt, ks>, grid,        \
+                                  threads, sb, s, a, out, w, bias, st, bar, \
+                                  P, R, nbp, rows_max);                     \
+    }
+    GW_K1_INSTANCES(GW_K1_RUN)
+#undef GW_K1_RUN
+  } else {
+#define GW_K1_RUN(h, ks, pt)                                                \
+    if constexpr (part_of(true, h, ks, pt) == Part) {                       \
+      if (H == h && KS == ks && PT == pt)                                   \
+        return launch_cooperative(diffusion_tiled_kernel<h, pt, ks>, grid,  \
+                                  threads, sb, s, a, out, upd, w, bias, st, \
+                                  bar, P, R, nbp, rows_max);                \
+    }
+    GW_K1_TILED_INSTANCES(GW_K1_RUN)
+#undef GW_K1_RUN
+  }
+  return kNotHere;
+}
+
+}  // namespace
+
+#define GW_K1_PART_ARGS                                                     \
+  const float *a, float *out, float *upd, float2 *st, unsigned *bar,        \
+      const float *w, const float *bias, int P, int R, int H, int nbp,      \
+      int rows_max, int threads, int KS, int PT, int grid, size_t sb,       \
+      cudaStream_t s
+#define GW_K1_CAT_(x, y) x##y
+#define GW_K1_CAT(x, y) GW_K1_CAT_(x, y)
+
+extern "C" int GW_K1_CAT(gw_ref_attn_diffusion_part, GW_PART)(
+    GW_K1_PART_ARGS) {
+  return launch_part<GW_PART>(a, out, upd, st, bar, w, bias, P, R, H, nbp,
+                              rows_max, threads, KS, PT, grid, sb, s);
+}
+
+#if GW_PART == 0
+extern "C" {
+#define GW_K1_DECLARE(i) int gw_ref_attn_diffusion_part##i(GW_K1_PART_ARGS);
+#if GW_PARTS > 1
+GW_K1_DECLARE(1)
+#endif
+#if GW_PARTS > 2
+GW_K1_DECLARE(2)
+#endif
+#if GW_PARTS > 3
+GW_K1_DECLARE(3)
+#endif
+#if GW_PARTS > 4
+GW_K1_DECLARE(4)
+#endif
+#if GW_PARTS > 5
+GW_K1_DECLARE(5)
+#endif
+#if GW_PARTS > 6
+GW_K1_DECLARE(6)
+#endif
+#if GW_PARTS > 7
+GW_K1_DECLARE(7)
+#endif
+#undef GW_K1_DECLARE
+}
+
+namespace {
+int (*const kParts[GW_PARTS])(GW_K1_PART_ARGS) = {
+    gw_ref_attn_diffusion_part0,
+#if GW_PARTS > 1
+    gw_ref_attn_diffusion_part1,
+#endif
+#if GW_PARTS > 2
+    gw_ref_attn_diffusion_part2,
+#endif
+#if GW_PARTS > 3
+    gw_ref_attn_diffusion_part3,
+#endif
+#if GW_PARTS > 4
+    gw_ref_attn_diffusion_part4,
+#endif
+#if GW_PARTS > 5
+    gw_ref_attn_diffusion_part5,
+#endif
+#if GW_PARTS > 6
+    gw_ref_attn_diffusion_part6,
+#endif
+#if GW_PARTS > 7
+    gw_ref_attn_diffusion_part7,
+#endif
+};
 }  // namespace
 
 // a, out: (B, P, R, H) float32, contiguous, not overlapping; w: (3, 3, H, H)
@@ -791,26 +923,15 @@ extern "C" int gw_ref_attn_diffusion(const float* a, float* out, float* upd,
       B * nbp > (int)kEpisode || (long long)P * (nbp + 1) >= (1LL << 31) ||
       smem <= 0 || smem > kSmemMax)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float2* st = reinterpret_cast<float2*>(stats);
-  const int grid = B * nbp;
-  const size_t sb = (size_t)smem;
-  if (upd == nullptr) {
-#define GW_K1_RUN(h, ks, pt)                                                \
-    if (H == h && KS == ks && PT == pt)                                     \
-      return launch_cooperative(diffusion_kernel<h, pt, ks>, grid, threads, \
-                                sb, s, a, out, w, bias, st, bar, P, R, nbp, \
-                                rows_max);
-    GW_K1_INSTANCES(GW_K1_RUN)
-#undef GW_K1_RUN
-  } else {
-#define GW_K1_RUN(h, ks, pt)                                                \
-    if (H == h && KS == ks && PT == pt)                                     \
-      return launch_cooperative(diffusion_tiled_kernel<h, pt, ks>, grid,    \
-                                threads, sb, s, a, out, upd, w, bias, st,   \
-                                bar, P, R, nbp, rows_max);
-    GW_K1_TILED_INSTANCES(GW_K1_RUN)
-#undef GW_K1_RUN
+  if (part_of(upd != nullptr, H, KS, PT) < 0)
+    return (int)cudaErrorInvalidValue;
+  for (auto part : kParts) {
+    const int err = part(a, out, upd, reinterpret_cast<float2*>(stats), bar,
+                         w, bias, P, R, H, nbp, rows_max, threads, KS, PT,
+                         B * nbp, (size_t)smem,
+                         static_cast<cudaStream_t>(stream));
+    if (err != kNotHere) return err;
   }
   return (int)cudaErrorInvalidValue;
 }
+#endif  // GW_PART == 0

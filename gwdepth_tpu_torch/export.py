@@ -27,7 +27,19 @@ lowers for the CPU too. An artifact runs on the device it was exported
 on. Shapes are static (`cfg.eval_hw`, `--batch`), as in JAX, so K1's
 schedule is fixed when the program is traced.
 
-`load_exported` imports only the two modules that register the ops,
+Serving. JAX's `exp.call` runs the deserialized artifact as one compiled
+XLA program; `load_exported` runs the loaded program through
+`graphs.compiled`, as `predict.make_forward` runs the model: on CUDA
+tensors the first call of an input signature captures one CUDA graph
+(after its eager warm-ups), and every later call copies the inputs into
+the graph's static inputs and replays it, one graph launch and no kernel
+launch from the host. The outputs are the graph's static outputs, valid
+until the next compiled call on that device (copy one to keep it).
+Under `graphs.disable()` the call runs the program eagerly, op by op; on
+CPU tensors it always does.
+
+`load_exported` imports only the modules that register the ops
+(`OP_MODULES`: K1, K2, and K3 and K4 of the window-attention entries),
 never `gwdepth_tpu_torch.models`, and sets full float32 matmuls and
 convolutions (no TF32), the precision the exported config runs at.
 """
@@ -42,7 +54,8 @@ import torch
 
 # the modules whose import registers the custom ops an artifact may hold
 OP_MODULES = ("gwdepth_tpu_torch.ops.ref_attn_diffusion",
-              "gwdepth_tpu_torch.ops.fused_conv")
+              "gwdepth_tpu_torch.ops.fused_conv",
+              "gwdepth_tpu_torch.ops.window_msa")
 
 
 class EvalForward(torch.nn.Module):
@@ -65,12 +78,19 @@ def export_forward(cfg, model: torch.nn.Module, batch_size: int = 1,
                    device="cuda") -> torch.export.ExportedProgram:
     """Trace the eval forward of `model` (built from `cfg`) on `device` at
     `cfg.eval_hw`: (B, H, W, 3) float32 images and a (B, H, W) bool mask,
-    static shapes. Returns the program; its state holds the weights."""
+    static shapes, after one eager call (see below). Returns the program;
+    its state holds the weights, its constants the tables."""
     model = model.to(device).eval()
     H, W = cfg.eval_hw
     images = torch.zeros((batch_size, H, W, 3), device=device)
     valid = torch.ones((batch_size, H, W), dtype=torch.bool, device=device)
     with torch.no_grad():
+        # one eager call first, so that every table of `ops/tables.py` is
+        # cached on the device and the program holds it as a device
+        # constant: a table first built inside the trace is a host array
+        # that the program would copy to the card at every call, a copy
+        # no CUDA graph can capture
+        EvalForward(model)(images, valid)
         return torch.export.export(EvalForward(model), (images, valid),
                                    strict=False)
 
@@ -81,10 +101,22 @@ def save_exported(path: str, cfg, model: torch.nn.Module,
     return path
 
 
+def exported_forward(program: torch.nn.Module, images: torch.Tensor,
+                     valid: torch.Tensor):
+    """One call of a loaded program (the function `load_exported`
+    compiles; the program is an argument, so the cache key holds it and
+    its fingerprint the weights)."""
+    return program(images, valid)
+
+
 def load_exported(path: str) -> Callable:
     """Load an artifact into a callable (images, valid) -> outputs, with
-    `call.in_avals` the (shape, dtype) of its two inputs."""
+    `call.in_avals` the (shape, dtype) of its two inputs; a CUDA graph a
+    signature on a card (see the module docstring; `call.program` is the
+    loaded `ExportedProgram`)."""
     import importlib
+
+    from gwdepth_tpu_torch import graphs
 
     for name in OP_MODULES:
         importlib.import_module(name)
@@ -97,11 +129,14 @@ def load_exported(path: str) -> Callable:
                   for n in ep.graph.nodes
                   if n.op == "placeholder" and n.name in user)
 
+    run = graphs.compiled(exported_forward)
+
     def call(images, valid):
         with torch.no_grad():
-            return fwd(images, valid)
+            return run(fwd, images, valid)
 
     call.in_avals = avals
+    call.program = ep
     return call
 
 

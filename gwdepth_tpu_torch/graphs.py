@@ -5,7 +5,8 @@ step as programs that `jax.jit` compiles once per static signature and
 then dispatches whole. The port captures each of the three as a CUDA
 graph once per signature and replays it, so a call costs the host one
 graph launch and the copies of its inputs instead of thousands of kernel
-launches from Python.
+launches from Python. `export.load_exported` serves a loaded artifact the
+same way, as JAX's `exp.call` runs its deserialized program.
 
 `compiled(fn)` returns the wrapped callable. Its cache is keyed as jit's:
 

@@ -28,6 +28,7 @@ fewer. Callers must not write into a table.
 from __future__ import annotations
 
 import collections
+import contextlib
 import threading
 from typing import Callable, Hashable, Optional
 
@@ -57,7 +58,13 @@ def device_table(key: Hashable, build: Callable[[], np.ndarray], device,
             f"device_table {key!r} on {full[1]}: first built while a CUDA "
             "graph is being captured; run the function eagerly once before "
             "capturing it (graphs.compiled warms up first)")
-    with torch.inference_mode(False), torch.no_grad():
+    # each mode switched only where it is on: a switch inside
+    # `torch.export`'s trace becomes a grad-mode region of the program
+    # (an artifact that then fails to load)
+    with (torch.inference_mode(False) if torch.is_inference_mode_enabled()
+          else contextlib.nullcontext()), \
+            (torch.no_grad() if torch.is_grad_enabled()
+             else contextlib.nullcontext()):
         t = torch.from_numpy(np.ascontiguousarray(build()))
         t = t.to(full[1], dtype) if dtype is not None else t.to(full[1])
     if type(t) is not torch.Tensor:

@@ -17,7 +17,7 @@ The counterpart of the K3/K4 half of `gwdepth_tpu/ops/pallas_kernels.py`
   `ndim < 2` returns x itself, as there. A CUDA tensor launches
   `csrc/layout_fence.cu` once, whether x is contiguous or a strided view
   of rows (`fence_rows`; the fused entry's x is a channel slice of wider
-  rows); a CPU tensor takes `x.clone()`. PyTorch has no layout
+  rows); a CPU tensor takes a contiguous copy. PyTorch has no layout
   assignment for the fence to stop, so it only computes what the TPU
   kernel computes.
 - `fused_window_attention(x, wqkv, bqkv, wproj, bproj, bias, mask,
@@ -30,17 +30,23 @@ The counterpart of the K3/K4 half of `gwdepth_tpu/ops/pallas_kernels.py`
   projections are `F.linear`, as the JAX package leaves them to XLA.
 
 Nothing falls back: a CUDA tensor the kernel cannot take (N > 64,
-hd > 32) raises.
+hd > 32) raises, as does a tensor on any other device.
 
-Gradients: `window_msa_kernel`, `fused_window_attention` and
-`layout_fence` are `torch.autograd.Function`s. The two attention
-backwards recompute from the saved inputs and differentiate the plain
-formulation (`window_msa_plain`, einsum and softmax; for the fused entry
-`fused_window_attention_plain`, with the two linears), as the JAX
-package's `_fwa_bwd` differentiates `_attention_xla_reference`
-(`gwdepth_tpu/ops/pallas_kernels.py:394-404`). The JAX package has no
-backward kernel for K3, so the port has none either. The fence passes its
-gradient through.
+Binding: K3 and K4 are the `torch.library` custom ops
+`gwdepth::window_msa` (q, k, v, bias, mask, q_scale) and
+`gwdepth::layout_fence` (x), as K1 and K2 are bound, so `torch.export` of
+an entry records them as op nodes (JAX's `jax.export` of the same entry
+carries the `pallas_call`). Each op dispatches by its inputs' device;
+`window_msa_kernel`, `layout_fence` and `fused_window_attention` call
+them, and no launch happens outside an op's implementation.
+
+Gradients: K3's op recomputes from its saved inputs and differentiates
+the plain formulation (`window_msa_plain`, einsum and softmax), as the
+JAX package's `_fwa_bwd` differentiates `_attention_xla_reference`
+(`gwdepth_tpu/ops/pallas_kernels.py:394-404`); the fused entry's two
+linears are differentiated by autograd around it. The JAX package has no
+backward kernel for K3, so the port has none either. The fence passes
+its gradient through.
 """
 
 from __future__ import annotations
@@ -81,7 +87,7 @@ def window_msa_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def layout_fence_plain(x: torch.Tensor) -> torch.Tensor:
-    return x.clone()
+    return x.clone(memory_format=torch.contiguous_format)
 
 
 def _split_qkv(qkv: torch.Tensor, B: int, H: int):
@@ -335,13 +341,8 @@ def _launch_fence(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _fence(x: torch.Tensor) -> torch.Tensor:
-    return layout_fence_plain(x) if x.device.type == "cpu" \
-        else _launch_fence(x)
-
-
 # ---------------------------------------------------------------------------
-# autograd Functions and entry points
+# custom ops and entry points
 # ---------------------------------------------------------------------------
 
 def _grads_through(fn, inputs, needs, ct):
@@ -356,78 +357,95 @@ def _grads_through(fn, inputs, needs, ct):
                  for t in leaves)
 
 
-class _WindowMsa(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, q, k, v, bias, mask):
-        ctx.save_for_backward(q, k, v, bias, mask)
-        if q.device.type == "cpu":
-            return window_msa_plain(q, k, v, bias, mask)
-        return _launch_msa(q, k, v, bias, mask, 1.0)
+def _scaled_plain(q_scale: float):
+    def plain(q, k, v, bias, mask):
+        return window_msa_plain(q * q_scale, k, v, bias, mask)
 
-    @staticmethod
-    def backward(ctx, ct):
-        return _grads_through(window_msa_plain, ctx.saved_tensors,
-                              ctx.needs_input_grad, ct)
+    return plain
+
+
+@torch.library.custom_op("gwdepth::window_msa", mutates_args=())
+def _msa_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            bias: torch.Tensor, mask: Optional[torch.Tensor],
+            q_scale: float) -> torch.Tensor:
+    """K3's op: softmax((q_scale q) kᵀ + bias (+ mask)) v, float32
+    (B, nW, N, H*hd)."""
+    if q.device.type == "cpu":
+        return _scaled_plain(q_scale)(q, k, v, bias, mask)
+    return _launch_msa(q, k, v, bias, mask, q_scale)
+
+
+@_msa_op.register_fake
+def _(q, k, v, bias, mask, q_scale):
+    B, nW, H, N, hd = q.shape
+    return q.new_empty((B, nW, N, H * hd), dtype=torch.float32)
+
+
+def _msa_setup_context(ctx, inputs, output):
+    *tensors, ctx.q_scale = inputs
+    ctx.save_for_backward(*tensors)
+
+
+def _msa_backward(ctx, ct):
+    """Autograd through the plain formulation, recomputed from the saved
+    inputs, as the JAX package differentiates its XLA reference."""
+    grads = _grads_through(_scaled_plain(ctx.q_scale), ctx.saved_tensors,
+                           ctx.needs_input_grad[:5], ct)
+    return (*grads, None)
+
+
+_msa_op.register_autograd(_msa_backward, setup_context=_msa_setup_context)
+
+
+@torch.library.custom_op("gwdepth::layout_fence", mutates_args=())
+def _fence_op(x: torch.Tensor) -> torch.Tensor:
+    """K4's op: a contiguous copy of x."""
+    if x.device.type == "cpu":
+        return layout_fence_plain(x)
+    return _launch_fence(x)
+
+
+@_fence_op.register_fake
+def _(x):
+    return x.new_empty(x.shape)
+
+
+_fence_op.register_autograd(lambda ctx, ct: ct)
+
+
+def _refuse_device(name: str, t: torch.Tensor) -> None:
+    """CPU tensors take the plain version and CUDA tensors the kernel;
+    any other device raises (the op's fake implementation would
+    otherwise answer for a meta tensor)."""
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: no kernel for device {t.device}")
 
 
 def window_msa_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       bias: torch.Tensor,
                       mask: Optional[torch.Tensor]) -> torch.Tensor:
     """q/k/v (B, nW, H, N, hd) with q pre-scaled, bias (H, N, N), mask
-    (nW, N, N) or None -> (B, nW, N, H*hd) float32, differentiable. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
-    return _WindowMsa.apply(q, k, v, bias, mask)
+    (nW, N, N) or None -> (B, nW, N, H*hd) float32, differentiable,
+    through the custom op `gwdepth::window_msa`. CPU tensors take the
+    plain version; CUDA tensors launch the kernel."""
+    _refuse_device("window_msa", q)
+    return _msa_op(q, k, v, bias, mask, 1.0)
 
 
 window_msa_kernel.launches = 0
 
 
-class _LayoutFence(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x):
-        return _fence(x)
-
-    @staticmethod
-    def backward(ctx, ct):
-        return ct
-
-
 def layout_fence(x: torch.Tensor) -> torch.Tensor:
-    """Identity copy of x (x itself when x.dim() < 2). CPU tensors are
-    cloned; CUDA tensors launch the copy kernel."""
+    """Identity copy of x (x itself when x.dim() < 2), differentiable,
+    through the custom op `gwdepth::layout_fence`. CPU tensors are
+    copied; CUDA tensors launch the copy kernel."""
     if x.dim() < 2:
         return x
-    return _LayoutFence.apply(x)
+    _refuse_device("layout_fence", x)
+    return _fence_op(x)
 
 
 layout_fence.launches = 0
-
-
-class _FusedWindowAttention(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wproj, bproj, bias, mask, num_heads):
-        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, bias, mask)
-        ctx.num_heads = num_heads
-        if x.device.type == "cpu":
-            y = fused_window_attention_plain(x, wqkv, bqkv, wproj, bproj,
-                                             bias, mask, num_heads)
-            return y.to(x.dtype)
-        B, nW, N, C = x.shape
-        _check_shapes(B, nW, num_heads, N, C // num_heads, bias, mask)
-        xf = _fence(x.reshape(B * nW, N, C).float())
-        q, k, v = _split_qkv(F.linear(xf, wqkv.float(), bqkv.float()), B,
-                             num_heads)
-        out = _launch_msa(q, k, v, bias, mask, (C // num_heads) ** -0.5)
-        return F.linear(out, wproj.float(), bproj.float()).to(x.dtype)
-
-    @staticmethod
-    def backward(ctx, ct):
-        def ref(*args):
-            return fused_window_attention_plain(*args, ctx.num_heads)
-
-        grads = _grads_through(ref, ctx.saved_tensors,
-                               ctx.needs_input_grad[:7], ct.float())
-        return (*grads, None)
 
 
 def fused_window_attention(x: torch.Tensor, wqkv: torch.Tensor,
@@ -437,10 +455,18 @@ def fused_window_attention(x: torch.Tensor, wqkv: torch.Tensor,
                            num_heads: int) -> torch.Tensor:
     """x (B, nW, N, C); wqkv (3C, C), bqkv (3C,), wproj (C, C), bproj (C,)
     in `nn.Linear` layout; bias (H, N, N); mask (nW, N, N) or None.
-    Returns (B, nW, N, C) in x's dtype, differentiable. On a CUDA tensor
+    Returns (B, nW, N, C) in x's dtype, differentiable: the fence and K3
+    are the two custom ops, the projections `F.linear`. On a CUDA tensor
     it launches K4 once and K3 once."""
-    return _FusedWindowAttention.apply(x, wqkv, bqkv, wproj, bproj, bias,
-                                       mask, num_heads)
+    _refuse_device("fused_window_attention", x)
+    B, nW, N, C = x.shape
+    if x.is_cuda:
+        _check_shapes(B, nW, num_heads, N, C // num_heads, bias, mask)
+    xf = layout_fence(x.reshape(B * nW, N, C).float())
+    q, k, v = _split_qkv(F.linear(xf, wqkv.float(), bqkv.float()), B,
+                         num_heads)
+    out = _msa_op(q, k, v, bias, mask, (C // num_heads) ** -0.5)
+    return F.linear(out, wproj.float(), bproj.float()).to(x.dtype)
 
 
 def reset_counts() -> None:

@@ -16,7 +16,7 @@ warm-up calls (the graphed path's first call captures): the
 synchronizing calls of one call that PyTorch's sync-debug mode "warn"
 reports, by the Python line that made them; one call under
 torch.profiler (device busy time, device kernels and K1's, K2's and
-lap_jv's among them, host-to-device copies, and on the host the kernel
+lap_jv's (and K3's and K4's) among them, host-to-device copies, and on the host the kernel
 launches it issued, its graph launches, its copy calls and its time in
 `cudaStreamSynchronize`); the median wall time of 10 forwards or 6
 steps, host clock to `torch.cuda.synchronize()`, whence the device's
@@ -49,10 +49,11 @@ import warnings
 FORWARD_HW = (768, 1024)
 FORWARD_RUNS, STEP_RUNS, WARMUPS = 10, 6, 2
 SEED = 0
-# device kernel names of K1, K2 (its forward and its backward's dx) and
-# the JV matcher
+# device kernel names of K1, K2 (its forward and its backward's dx), the
+# JV matcher, K3 and K4
 KERNEL_NAMES = {"k1": ("diffusion_kernel", "diffusion_tiled_kernel"),
-                "k2": ("conv3x3_ln_act_kernel",), "lap_jv": ("lap_jv_kernel",)}
+                "k2": ("conv3x3_ln_act_kernel",), "lap_jv": ("lap_jv_kernel",),
+                "k3": ("window_msa_kernel",), "k4": ("fence_vector",)}
 # the host's kernel launches among the CUDA API calls the profiler records
 LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
                 "cuLaunchKernelEx", "cudaLaunchCooperativeKernel")

@@ -157,7 +157,7 @@ def main(argv=None) -> None:
         want = wm.window_msa_plain(q * scale, k, v, bias, mask)
 
         def call():
-            return wm._launch_msa(q, k, v, bias, mask, scale)
+            return torch.ops.gwdepth.window_msa(q, k, v, bias, mask, scale)
 
         with using(None):
             per_sm = wm._blocks_per_sm(index, N, hd, wm.smem_bytes(

@@ -658,7 +658,7 @@ def test_k3_kernel_reads_strided_views_and_scales_q(dev):
     q, k, v = port_wm._split_qkv(qkv, B, H)
     assert not q.is_contiguous()
     bias = _t(rng.normal(size=(H, N, N)), dev)
-    got = port_wm._launch_msa(q, k, v, bias, None, hd ** -0.5)
+    got = torch.ops.gwdepth.window_msa(q, k, v, bias, None, hd ** -0.5)
     want = port_wm.window_msa_plain(q * hd ** -0.5, k, v, bias, None)
     torch.testing.assert_close(got, want, atol=TOL, rtol=0)
 
@@ -781,7 +781,7 @@ def test_k4_copies_every_byte(dev, offset):
         x = store[offset:offset + n].view(1, n)
         assert n == 0 or x.data_ptr() % 16 == offset % 16
         port_wm.reset_counts()
-        got = port_wm._launch_fence(x)
+        got = torch.ops.gwdepth.layout_fence(x)
         torch.cuda.synchronize()
         assert port_wm.layout_fence.launches == (1 if n else 0)
         assert torch.equal(got, x), (offset, n)
@@ -831,12 +831,173 @@ def test_k4_fence_reads_strided_views_in_one_launch(dev):
              big[:, 1:4, ::2, 2:, 3:7]]
     for x in views:
         port_wm.reset_counts()
-        got = port_wm._launch_fence(x)
+        got = torch.ops.gwdepth.layout_fence(x)
         torch.cuda.synchronize()
         assert port_wm.layout_fence.launches == 1
         assert got.is_contiguous() and torch.equal(got, x)
     with pytest.raises(ValueError, match="strided row dims"):
-        port_wm._launch_fence(big[::2, ::2, ::2, ::2, ::2])
+        torch.ops.gwdepth.layout_fence(big[::2, ::2, ::2, ::2, ::2])
+
+
+def test_k3_k4_ops_launch_their_kernels(dev):
+    """`gwdepth::window_msa` and `gwdepth::layout_fence` on CUDA tensors:
+    one launch of their kernel a call, counted as the entries count them
+    (the fused entry one of each), each output equal to the plain
+    version's."""
+    q, k, v, bias, mask = _msa_inputs(21, (2, 6, 4, 49, 8), dev, True)
+    port_wm.reset_counts()
+    got = torch.ops.gwdepth.window_msa(q, k, v, bias, mask, 0.5)
+    torch.cuda.synchronize()
+    assert (port_wm.window_msa_kernel.launches,
+            port_wm.layout_fence.launches) == (1, 0)
+    torch.testing.assert_close(
+        got, port_wm.window_msa_plain(q * 0.5, k, v, bias, mask), atol=TOL,
+        rtol=0)
+    x = torch.randn(12, 49, 40, device=dev)[..., :32]
+    got = torch.ops.gwdepth.layout_fence(x)
+    torch.cuda.synchronize()
+    assert (port_wm.window_msa_kernel.launches,
+            port_wm.layout_fence.launches) == (1, 1)
+    assert got.is_contiguous() and torch.equal(got, x)
+    gen = torch.Generator(dev).manual_seed(22)
+    w = [0.2 * torch.randn(s, device=dev, generator=gen)
+         for s in ((96, 32), (96,), (32, 32), (32,))]
+    xw = torch.randn(2, 6, 49, 32, device=dev, generator=gen)
+    with torch.no_grad():
+        got = port_wm.fused_window_attention(xw, *w, bias, mask, 4)
+    torch.cuda.synchronize()
+    assert (port_wm.window_msa_kernel.launches,
+            port_wm.layout_fence.launches) == (2, 2)
+    torch.testing.assert_close(got, port_wm.fused_window_attention_plain(
+        xw, *w, bias, mask, 4), atol=TOL, rtol=0)
+
+
+def test_no_op_on_a_cuda_tensor_takes_a_plain_version(dev, monkeypatch):
+    """Each custom op (K1, K2, K3, K4, lap_jv) and each entry that calls
+    one, on CUDA tensors, launches its kernel: every plain version raises
+    here, and the launch counts move."""
+    def refuse(*args, **kw):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for mod, name in ((port_k1, "ref_attn_diffusion_plain"),
+                      (port_fc, "conv3x3_ln_act_plain"),
+                      (port_wm, "window_msa_plain"),
+                      (port_wm, "layout_fence_plain"),
+                      (port_lap, "jv_plain")):
+        monkeypatch.setattr(mod, name, refuse)
+    for mod in (port_k1, port_fc, port_wm, port_lap):
+        mod.reset_counts()
+    a, w, b = _k1_inputs(23, (1, 50, 8, 16), dev)
+    x, w2, g2, b2, r2 = _k2_inputs(24, 30, 60, dev)
+    q, k, v, bias, mask = _msa_inputs(25, (1, 6, 4, 49, 8), dev, True)
+    cost, nv = _lap_problems(26, (2, 1, 12, 9))
+    gen = torch.Generator(dev).manual_seed(27)
+    wf = [0.2 * torch.randn(s, device=dev, generator=gen)
+          for s in ((96, 32), (96,), (32, 32), (32,))]
+    with torch.no_grad():
+        torch.ops.gwdepth.ref_attn_diffusion(a, w, b)
+        port_k1.ref_attn_diffusion(a, w, b)
+        torch.ops.gwdepth.conv3x3_ln_act(x, w2, g2, b2, r2, "gelu", True)
+        port_fc.conv3x3_ln_act(x, w2, g2, b2, r2, "gelu")
+        torch.ops.gwdepth.window_msa(q, k, v, bias, mask, 1.0)
+        port_wm.window_msa_kernel(q, k, v, bias, mask)
+        torch.ops.gwdepth.layout_fence(x)
+        port_wm.layout_fence(x)
+        port_wm.fused_window_attention(
+            torch.randn(1, 6, 49, 32, device=dev, generator=gen), *wf,
+            bias, mask, 4)
+        torch.ops.gwdepth.lap_jv(cost.to(dev), nv.to(dev))
+        port_lap.lap_jv(cost.to(dev), nv.to(dev))
+    torch.cuda.synchronize()
+    assert (port_k1.ref_attn_diffusion.launches,
+            port_fc.conv3x3_ln_act.launches,
+            port_wm.window_msa_kernel.launches,
+            port_wm.layout_fence.launches,
+            port_lap.lap_jv.launches) == (2, 2, 3, 3, 2)
+
+
+# a tiny `use_pallas` model exported on the card and served through
+# `export.load_exported` in a process of its own (the profiler's device
+# events and CUDA API calls are reliable in a fresh process; see
+# `test_k3_kernel_is_one_launch`): three calls graphed and under
+# `graphs.disable()`, then one graphed and one eager call profiled
+_SERVED_ARTIFACT = r"""
+import json, sys
+import torch
+from gwdepth_tpu_torch import export, graphs
+from gwdepth_tpu_torch.config import tiny_test_config
+from gwdepth_tpu_torch.models import build_glassrgbd
+from gwdepth_tpu_torch.ops import fused_conv, ref_attn_diffusion
+from gwdepth_tpu_torch.tools.dispatch_census import profiled
+
+dev = torch.device("cuda")
+cfg = tiny_test_config(use_pallas=True)
+cfg.set_matmul_precision()
+model = build_glassrgbd(cfg, 0, device="cpu").to(dev).eval()
+path = sys.argv[1]
+torch.export.save(export.export_forward(cfg, model, 1, "cuda"), path)
+call = export.load_exported(path)
+(shape, _), (vshape, _) = call.in_avals
+gen = torch.Generator(dev).manual_seed(0)
+xs = [torch.randn(shape, device=dev, generator=gen) for _ in range(3)]
+valid = torch.ones(vshape, dtype=torch.bool, device=dev)
+equal, counts = [], []
+with torch.no_grad():
+    for x in xs:
+        for mode in ("graphed", "eager"):
+            ref_attn_diffusion.reset_counts()
+            fused_conv.reset_counts()
+            if mode == "graphed":
+                got = [t.clone() for t in call(x, valid)]
+            else:
+                with graphs.disable():
+                    want = call(x, valid)
+            counts.append([ref_attn_diffusion.ref_attn_diffusion.launches,
+                           fused_conv.conv3x3_ln_act.launches])
+        equal.append([bool(torch.equal(g, w)) for g, w in zip(got, want)])
+    graphed = profiled(lambda: call(xs[0], valid))
+    with graphs.disable():
+        eager = profiled(lambda: call(xs[0], valid))
+print(json.dumps({"equal": equal, "counts": counts,
+                  "stats": {k: graphs.stats["exported_forward", k]
+                            for k in ("captures", "replays", "eager_runs")},
+                  "graphed": graphed, "eager": eager}))
+"""
+
+
+def test_graphed_artifact_equals_its_eager_call_without_host_launches(
+        dev, tmp_path):
+    """`export.load_exported` on the card replays one CUDA graph a
+    signature: each call's outputs equal the same artifact's under
+    `graphs.disable()` bit for bit; after the capture a call issues no
+    kernel launch from the host and one graph launch, and the replay runs
+    K1's and K2's kernels as often as the eager call."""
+    import json
+    import subprocess
+    import sys
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(tests)] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    run = subprocess.run([sys.executable, "-c", _SERVED_ARTIFACT,
+                          str(tmp_path / "tiny.pt2")], env=env,
+                         capture_output=True, text=True, timeout=600)
+    assert run.returncode == 0, run.stderr[-3000:]
+    res = json.loads(run.stdout.strip().splitlines()[-1])
+    assert all(all(e) for e in res["equal"]), res["equal"]
+    graphed, eager = res["counts"][0::2], res["counts"][1::2]
+    assert min(eager[0]) > 0 and all(c == eager[0] for c in eager), eager
+    # the first call also runs the capture's warm-ups
+    assert graphed == [[3 * n for n in eager[0]], eager[0], eager[0]], graphed
+    assert res["stats"] == {"captures": 1, "replays": 4,
+                            "eager_runs": 2 + 4}, res["stats"]
+    g, e = res["graphed"], res["eager"]
+    assert g["host_launches"] == 0 and g["graph_launches"] == 1, g
+    assert e["host_launches"] > 0 and e["graph_launches"] == 0, e
+    assert g["kernels_by_name"] == e["kernels_by_name"], (g, e)
+    assert g["kernels_by_name"]["k1"] == eager[0][0]
+    assert g["kernels_by_name"]["k2"] == eager[0][1]
 
 
 def _lap_problems(seed, shape):

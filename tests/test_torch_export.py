@@ -48,7 +48,8 @@ from gwdepth_tpu.export import load_exported as jax_load_exported
 from gwdepth_tpu.export import save_exported as jax_save_exported
 
 from gwdepth_tpu_torch import export
-from gwdepth_tpu_torch.ops import fused_conv, ref_attn_diffusion
+from gwdepth_tpu_torch.ops import (fused_conv, interpolate,
+                                   ref_attn_diffusion, tables, window_msa)
 
 from test_torch_kernels import one_torch_thread  # noqa: F401 (autouse)
 from test_torch_model import F32_TOL, _close, model_run
@@ -68,19 +69,26 @@ import json, sys
 import numpy as np
 import torch
 torch.set_num_threads(1)
+from gwdepth_tpu_torch import graphs
 from gwdepth_tpu_torch.export import load_exported
 inp = np.load(sys.argv[1])
-model, ops = sys.argv[3:]
+model, ops, win = sys.argv[3:]
 call = load_exported(model)
 out = call(torch.from_numpy(inp["x"]), torch.from_numpy(inp["valid"]))
 np.savez(model + ".out.npz", *[o.numpy() for o in out])
-ep = torch.export.load(ops)
-with torch.no_grad():
-    out = ep.module()(*[torch.from_numpy(inp[f"op{i}"]) for i in range(5)])
-np.savez(ops + ".out.npz", *[o.numpy() for o in out])
+nodes = {}
+for path, n_in in ((ops, 5), (win, 6)):
+    ep = torch.export.load(path)
+    with torch.no_grad():
+        out = ep.module()(*[torch.from_numpy(inp[f"{path}{i}"])
+                            for i in range(n_in)])
+    np.savez(path + ".out.npz", *[o.numpy() for o in out])
+    nodes[path] = sorted(str(n.target) for n in ep.graph.nodes
+                         if str(n.target).startswith("gwdepth."))
 json.dump({"in_avals": [[list(s), str(d)] for s, d in call.in_avals],
-           "op_nodes": sorted(str(n.target) for n in ep.graph.nodes
-                              if str(n.target).startswith("gwdepth.")),
+           "op_nodes": nodes[ops], "window_op_nodes": nodes[win],
+           "stats": {k: graphs.stats["exported_forward", k]
+                     for k in ("captures", "replays", "eager_runs")},
            "modules": sorted(m for m in sys.modules
                              if m.startswith("gwdepth"))},
           open(sys.argv[2], "w"))
@@ -93,6 +101,26 @@ class _BothOps(torch.nn.Module):
     def forward(self, a, w, b, x, w2):
         return (ref_attn_diffusion.ref_attn_diffusion(a, w, b),
                 fused_conv.conv3x3_ln_act(x, w2, act="gelu"))
+
+
+class _WindowOps(torch.nn.Module):
+    """K3's and K4's entries: the fused window attention (both ops) and
+    the fence alone."""
+
+    def forward(self, x, wqkv, bqkv, wproj, bproj, bias):
+        return (window_msa.fused_window_attention(x, wqkv, bqkv, wproj,
+                                                  bproj, bias, None, 2),
+                window_msa.layout_fence(wqkv))
+
+
+def _window_inputs():
+    g = torch.Generator().manual_seed(5)
+    return (torch.randn(1, 3, 4, 8, generator=g),
+            torch.randn(24, 8, generator=g) * 0.2,
+            torch.randn(24, generator=g) * 0.1,
+            torch.randn(8, 8, generator=g) * 0.2,
+            torch.randn(8, generator=g) * 0.1,
+            torch.randn(2, 4, 4, generator=g))
 
 
 def _op_inputs():
@@ -136,6 +164,32 @@ def test_k2_custom_op_passes_opcheck(requires_grad, with_ln_res):
              (*tensors, "gelu" if with_ln_res else "none", True))
 
 
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_k3_custom_op_passes_opcheck(requires_grad, with_mask):
+    """`gwdepth::window_msa` at a small site, q scaled inside the op as
+    the fused entry asks it."""
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(2, 3, 2, 5, 4, generator=g) for _ in range(3))
+    bias = torch.randn(2, 5, 5, generator=g)
+    mask = (torch.rand(3, 5, 5, generator=g) < 0.2) * -100.0 \
+        if with_mask else None
+    tensors = [t if t is None else t.requires_grad_(requires_grad)
+               for t in (q, k, v, bias, mask)]
+    _opcheck(torch.ops.gwdepth.window_msa.default, (*tensors, 0.5))
+
+
+@pytest.mark.parametrize("requires_grad", [False, True])
+def test_k4_custom_op_passes_opcheck(requires_grad):
+    """`gwdepth::layout_fence` on a contiguous tensor and on the fused
+    entry's kind of input, a channel slice of wider rows."""
+    g = torch.Generator().manual_seed(4)
+    wide = torch.randn(6, 5, 12, generator=g)
+    for x in (wide[..., :8].contiguous(), wide[..., 4:]):
+        _opcheck(torch.ops.gwdepth.layout_fence.default,
+                 (x.detach().requires_grad_(requires_grad),))
+
+
 @pytest.fixture(scope="module")
 def exported(tmp_path_factory):
     """The plain-path artifact from `export.main` and the two-op program,
@@ -152,11 +206,16 @@ def exported(tmp_path_factory):
     ops = str(tmp / "ops.pt2")
     torch.export.save(torch.export.export(_BothOps(), _op_inputs(),
                                           strict=False), ops)
+    win = str(tmp / "win.pt2")
+    torch.export.save(torch.export.export(_WindowOps(), _window_inputs(),
+                                          strict=False), win)
     np.savez(tmp / "inputs.npz", x=run["x"], valid=run["valid"],
-             **{f"op{i}": t.numpy() for i, t in enumerate(_op_inputs())})
+             **{f"{ops}{i}": t.numpy() for i, t in enumerate(_op_inputs())},
+             **{f"{win}{i}": t.numpy()
+                for i, t in enumerate(_window_inputs())})
     loader = subprocess.Popen(
         [sys.executable, "-c", _LOADER, str(tmp / "inputs.npz"),
-         str(tmp / "res.json"), plain, ops],
+         str(tmp / "res.json"), plain, ops, win],
         env=dict(os.environ, PYTHONPATH=REPO), cwd=tmp)
     try:
         program = export.export_forward(run["cfg"].replace(use_pallas=True),
@@ -178,6 +237,7 @@ def exported(tmp_path_factory):
 
     return dict(run=run, res=res, plain=outputs(plain), program=program,
                 kernels=[k.numpy() for k in kernels], ops=outputs(ops),
+                win=outputs(win),
                 jax=[np.asarray(o) for o in jax_out])
 
 
@@ -206,6 +266,27 @@ def test_saved_ops_load_and_run_in_a_fresh_process(exported):
         want = _BothOps()(*_op_inputs())
     for g, w in zip(exported["ops"], want):
         _close(torch.from_numpy(g), w.numpy(), EAGER_TOL)
+
+
+def test_saved_window_ops_load_in_a_fresh_process(exported):
+    """A program of K3's and K4's entries keeps their op nodes (the fused
+    entry one of each, the fence alone one more) through save and a load
+    after `load_exported` (its `OP_MODULES` register the ops), and runs
+    them to the eager entries' outputs."""
+    assert exported["res"]["window_op_nodes"] == [
+        "gwdepth.layout_fence.default", "gwdepth.layout_fence.default",
+        "gwdepth.window_msa.default"]
+    with torch.no_grad():
+        want = _WindowOps()(*_window_inputs())
+    for g, w in zip(exported["win"], want):
+        _close(torch.from_numpy(g), w.numpy(), EAGER_TOL)
+
+
+def test_loaded_call_runs_the_program_eagerly_on_cpu(exported):
+    """On CPU tensors the compiled call runs the program as it is: one
+    eager run, no capture, no replay."""
+    assert exported["res"]["stats"] == {"captures": 0, "replays": 0,
+                                        "eager_runs": 1}
 
 
 def test_plain_artifact_matches_eager_and_jax_artifact(exported):
@@ -278,6 +359,61 @@ def test_export_entries_bind_the_ops_once():
     assert not hasattr(fused_conv, "_Conv3x3LnAct")
     assert ref_attn_diffusion._op._qualname == "gwdepth::ref_attn_diffusion"
     assert fused_conv._op._qualname == "gwdepth::conv3x3_ln_act"
+
+
+class _Resize(torch.nn.Module):
+    """A bilinear resize: its lerp tables come from `ops/tables.py`."""
+
+    def forward(self, x):
+        return interpolate.resize_bilinear(x, (11, 13))
+
+
+def test_tables_built_while_tracing_leave_the_artifact_loadable(tmp_path):
+    """A table first built inside `torch.export`'s trace (as in a fresh
+    process: nothing cached yet) becomes a constant of the program and
+    leaves no grad-mode region behind: such a region's node has no
+    value, and the saved artifact failed to load ("Node.meta
+    wrap_with_set_grad_enabled is missing val field")."""
+    x = torch.randn(1, 2, 5, 7, generator=torch.Generator().manual_seed(6))
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tables, "_tables", collections.OrderedDict())
+        with torch.no_grad():
+            program = torch.export.export(_Resize(), (x,), strict=False)
+        assert not tables.cached_keys()     # a tracer's tables are not kept
+    assert not [n for n in program.graph.nodes
+                if "set_grad_enabled" in str(n.target)]
+    torch.export.save(program, tmp_path / "resize.pt2")
+    loaded = torch.export.load(tmp_path / "resize.pt2")
+    with torch.no_grad():
+        _close(loaded.module()(x), _Resize()(x).numpy(), EAGER_TOL)
+
+
+class _ResizeModel(torch.nn.Module):
+    """A stand-in for the model at the serving entry: its outputs come
+    from a table of `ops/tables.py`."""
+
+    def forward(self, images, valid):
+        x = images.permute(0, 3, 1, 2)
+        return {"pred_depth": [interpolate.resize_bilinear(x, (11, 13))],
+                "pred_seg": x.mean(dim=1), "pred_logits": None}
+
+
+def test_export_forward_traces_with_the_tables_cached():
+    """`export_forward` runs the forward once before it traces, so the
+    tables are cached on the export's device and the program holds those
+    as constants. Built inside the trace instead (a fresh process), a
+    card's program held host arrays copied in at every call, which a CUDA
+    graph cannot capture (the served artifact's capture raised)."""
+    from types import SimpleNamespace
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tables, "_tables", collections.OrderedDict())
+        program = export.export_forward(SimpleNamespace(eval_hw=(5, 7)),
+                                        _ResizeModel(), 1, "cpu")
+        cached = tables.cached_tensors()
+    assert cached
+    consts = list(program.constants.values())
+    assert all(any(c is t for c in consts) for t in cached)
 
 
 @pytest.mark.parametrize("flag", ["--resume", "--torch_init"])

@@ -418,3 +418,64 @@ def test_slice_at_tiny_config_matches_model_and_jax(tiny_sites, jax_ref):
             _close(got, out)
             jw = np_(x, w[0].T, w[1], w[2].T, w[3], w[4], mask)
             _close(got, jax_ref["attention"](*_jnp(*jw), mod.num_heads))
+
+
+class _FusedEntry(torch.nn.Module):
+    def __init__(self, num_heads):
+        super().__init__()
+        self.num_heads = num_heads
+
+    def forward(self, *args):
+        return wm.fused_window_attention(*args, self.num_heads)
+
+
+class _WindowEntries(torch.nn.Module):
+    """K3's entry through `swin.window_msa(use_pallas=True)` and K4's."""
+
+    def forward(self, q, k, v, bias, mask, x):
+        return (swin.window_msa(q, k, v, bias, mask, use_pallas=True),
+                wm.layout_fence(x))
+
+
+def _op_nodes(program) -> list:
+    return sorted(str(n.target) for n in program.graph.nodes
+                  if str(n.target).startswith("gwdepth."))
+
+
+def test_exported_window_entries_hold_the_ops_and_match_jax():
+    """`torch.export` of the fused entry records one `gwdepth.window_msa`
+    and one `gwdepth.layout_fence` node, and of the two single entries
+    one node each; the exported programs equal the JAX package's
+    `fused_window_attention` (K3 in interpret mode), `window_msa_pallas`
+    (interpret mode) and `layout_fence` on the same seeded inputs."""
+    rng = np.random.default_rng(17)
+    B, nW, N, C, H = 1, 6, 9, 32, 4
+    x = rng.standard_normal((B, nW, N, C)).astype(np.float32)
+    wqkv = (0.2 * rng.standard_normal((C, 3 * C))).astype(np.float32)
+    bqkv, bproj = (0.1 * rng.standard_normal(n).astype(np.float32)
+                   for n in (3 * C, C))
+    wproj = (0.2 * rng.standard_normal((C, C))).astype(np.float32)
+    bias = rng.standard_normal((H, N, N)).astype(np.float32)
+    mask = np.where(rng.random((nW, N, N)) < 0.2, -100.0, 0.0
+                    ).astype(np.float32)
+    args = tuple(_pt(x, wqkv.T, bqkv, wproj.T, bproj, bias, mask))
+    with torch.no_grad():
+        fused = torch.export.export(_FusedEntry(H), args, strict=False)
+        got = fused.module()(*args)
+    assert _op_nodes(fused) == ["gwdepth.layout_fence.default",
+                                "gwdepth.window_msa.default"]
+    _close(got, jax_fused(*_jnp(x, wqkv, bqkv, wproj, bproj, bias, mask),
+                          H))
+
+    msa = _msa_inputs(1, 5, 3, 9, 4, True, 18)
+    fence_in = rng.standard_normal((16, 9, 5)).astype(np.float32)
+    ins = tuple(_pt(*msa, fence_in))
+    with torch.no_grad():
+        single = torch.export.export(_WindowEntries(), ins, strict=False)
+        got_msa, got_fence = single.module()(*ins)
+    assert _op_nodes(single) == ["gwdepth.layout_fence.default",
+                                 "gwdepth.window_msa.default"]
+    _close(got_msa, window_msa_pallas(*_jnp(*msa), interpret=True))
+    np.testing.assert_array_equal(got_fence.numpy(),
+                                  np.asarray(jax_fence(fence_in,
+                                                       interpret=True)))
